@@ -1,0 +1,150 @@
+// PyTorch binding of the port's CUDA kernels: the only file that includes
+// torch/extension.h.  Checks each tensor, launches on PyTorch's current
+// stream and raises on any CUDA error the launcher reports.
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <torch/extension.h>
+
+#include <limits>
+#include <tuple>
+
+#include "kernels.h"
+
+namespace {
+
+constexpr size_t kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
+
+void check(const torch::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+void check_launch(cudaError_t err, const char* what) {
+  TORCH_CHECK(err == cudaSuccess, what, " failed: ", cudaGetErrorString(err));
+}
+
+std::tuple<torch::Tensor, torch::Tensor> spd_solve_inv(torch::Tensor P,
+                                                       torch::Tensor eta,
+                                                       bool with_inverse) {
+  check(P, "P");
+  check(eta, "eta");
+  TORCH_CHECK(P.dim() == 3 && P.size(1) == P.size(2), "P must be (B, d, d)");
+  TORCH_CHECK(eta.dim() == 2 && eta.size(0) == P.size(0) &&
+                  eta.size(1) == P.size(1),
+              "eta must be (B, d)");
+  TORCH_CHECK(P.size(0) <= std::numeric_limits<int>::max(), "batch too large");
+  const c10::cuda::CUDAGuard guard(P.device());
+  const int B = static_cast<int>(P.size(0)), d = static_cast<int>(P.size(1));
+  auto mu = torch::empty({B, d}, P.options());
+  torch::Tensor cov;
+  if (with_inverse) cov = torch::empty({B, d, d}, P.options());
+  check_launch(
+      tame_spd_solve_inv(P.data_ptr<float>(), eta.data_ptr<float>(),
+                         mu.data_ptr<float>(),
+                         with_inverse ? cov.data_ptr<float>() : nullptr, B, d,
+                         at::cuda::getCurrentCUDAStream()),
+      "spd_solve_inv");
+  return {mu, cov};
+}
+
+torch::Tensor logdet_spd(torch::Tensor P) {
+  check(P, "P");
+  TORCH_CHECK(P.dim() == 3 && P.size(1) == P.size(2), "P must be (B, d, d)");
+  TORCH_CHECK(P.size(0) <= std::numeric_limits<int>::max(), "batch too large");
+  const c10::cuda::CUDAGuard guard(P.device());
+  const int B = static_cast<int>(P.size(0)), d = static_cast<int>(P.size(1));
+  auto out = torch::empty({B}, P.options());
+  check_launch(tame_logdet_spd(P.data_ptr<float>(), out.data_ptr<float>(), B,
+                               d, at::cuda::getCurrentCUDAStream()),
+               "logdet_spd");
+  return out;
+}
+
+int64_t fused_fit_smem_bytes(int64_t n, int64_t T, int64_t d,
+                             int64_t num_blocks) {
+  return static_cast<int64_t>(tame_fused_fit_smem_bytes(
+      static_cast<int>(n), static_cast<int>(T), static_cast<int>(d),
+      static_cast<int>(num_blocks)));
+}
+
+void fused_fit(torch::Tensor W0, torch::Tensor W1, torch::Tensor eta_a,
+               torch::Tensor eta_b, torch::Tensor y0, torch::Tensor Xm0,
+               torch::Tensor Xc0, torch::Tensor pri, torch::Tensor Xm,
+               torch::Tensor Xc, torch::Tensor eh, torch::Tensor mh,
+               torch::Tensor stats, int64_t num_blocks, int64_t max_iter,
+               int64_t carry_pat, int64_t patience, int64_t structure,
+               bool corrected, double lr, double tol, double p, double q,
+               double tr_rinv, double logdet_R, double logdet_S0,
+               double logdet_Q, double carry_elbo) {
+  for (auto* t : {&W0, &W1, &eta_a, &eta_b, &y0, &Xm0, &Xc0, &pri, &Xm, &Xc,
+                  &eh, &mh, &stats})
+    check(*t, "fused_fit input");
+  TORCH_CHECK(Xm0.dim() == 3, "X_mean must be (n, T, d)");
+  const int n = static_cast<int>(Xm0.size(0)), T = static_cast<int>(Xm0.size(1)),
+            d = static_cast<int>(Xm0.size(2));
+  TORCH_CHECK(W0.dim() == 3 && W0.size(0) == n && W0.size(1) == n &&
+                  W0.size(2) == T && W1.sizes() == W0.sizes() &&
+                  y0.sizes() == W0.sizes(),
+              "W0, W1, y0 must be (n, n, T)");
+  TORCH_CHECK(eta_a.numel() == n * T && eta_b.numel() == n * T,
+              "eta_a, eta_b must be (n, T)");
+  TORCH_CHECK(Xc0.numel() == static_cast<int64_t>(n) * T * d * d &&
+                  Xm.sizes() == Xm0.sizes() && Xc.sizes() == Xc0.sizes(),
+              "X_cov must be (n, T, d, d)");
+  TORCH_CHECK(pri.numel() == 5 * d * d, "pri must be (5, d, d)");
+  TORCH_CHECK(num_blocks >= 1 && n % num_blocks == 0,
+              "num_blocks must divide n");
+  TORCH_CHECK(eh.numel() >= max_iter && mh.numel() >= max_iter,
+              "history buffers shorter than max_iter");
+  TORCH_CHECK(stats.numel() == 5, "stats must hold 5 values");
+  TORCH_CHECK(structure >= 0 && structure <= 2, "bad structure code");
+  const size_t smem = tame_fused_fit_smem_bytes(n, T, d, num_blocks);
+  TORCH_CHECK(smem <= kMaxSmemBytes, "fused fit needs ", smem,
+              " bytes of shared memory, more than the ", kMaxSmemBytes,
+              " a block may use");
+  const c10::cuda::CUDAGuard guard(W0.device());
+  FusedFitArgs a;
+  a.W0 = W0.data_ptr<float>();
+  a.W1 = W1.data_ptr<float>();
+  a.eta_a = eta_a.data_ptr<float>();
+  a.eta_b = eta_b.data_ptr<float>();
+  a.y0 = y0.data_ptr<float>();
+  a.Xm0 = Xm0.data_ptr<float>();
+  a.Xc0 = Xc0.data_ptr<float>();
+  a.pri = pri.data_ptr<float>();
+  a.Xm = Xm.data_ptr<float>();
+  a.Xc = Xc.data_ptr<float>();
+  a.eh = eh.data_ptr<float>();
+  a.mh = mh.data_ptr<float>();
+  a.stats = stats.data_ptr<float>();
+  a.n = n;
+  a.T = T;
+  a.num_blocks = static_cast<int>(num_blocks);
+  a.max_iter = static_cast<int>(max_iter);
+  a.carry_pat = static_cast<int>(carry_pat);
+  a.patience = static_cast<int>(patience);
+  a.structure = static_cast<int>(structure);
+  a.corrected = corrected ? 1 : 0;
+  a.lr = static_cast<float>(lr);
+  a.tol = static_cast<float>(tol);
+  a.p = static_cast<float>(p);
+  a.q = static_cast<float>(q);
+  a.tr_rinv = static_cast<float>(tr_rinv);
+  a.logdet_R = static_cast<float>(logdet_R);
+  a.logdet_S0 = static_cast<float>(logdet_S0);
+  a.logdet_Q = static_cast<float>(logdet_Q);
+  a.carry_elbo = static_cast<float>(carry_elbo);
+  check_launch(tame_fused_fit(a, d, at::cuda::getCurrentCUDAStream()),
+               "fused_fit");
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("spd_solve_inv", &spd_solve_inv, "K1: batched SPD solve (+ inverse)");
+  m.def("logdet_spd", &logdet_spd, "K2: batched SPD log-determinant");
+  m.def("fused_fit", &fused_fit, "K3: whole CAVI fit in one thread block");
+  m.def("fused_fit_smem_bytes", &fused_fit_smem_bytes,
+        "shared memory K3 needs for (n, T, d, num_blocks)");
+}
