@@ -6,9 +6,10 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. build the port's CUDA kernels (K1 spd_solve_inv, K2 logdet_spd,
-   K3 fused_fit) from ``tame_torch/csrc`` into ``build/tame_torch``;
+   K3 fused_fit, K4 fused_smoother) from ``tame_torch/csrc`` into
+   ``build/tame_torch``;
 2. compare each kernel with its plain PyTorch twin on the same CUDA
-   inputs, at the shapes the main path gives it, and time both with CUDA
+   inputs, at the shapes the main paths give it, and time both with CUDA
    events (median of several runs);
 3. the demo drive: ``TemporalAMEModel(15, 10, 2, seed=42)`` data from a
    CPU generator (the same ``Y`` as the CPU tests) moved to the card, then
@@ -16,12 +17,20 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    run through K3;
 4. a real-size Good-SMF fit at n=2000, T=50, r=4 (data generated on the
    card) through the default engine path — 16-block updates with exact
-   diagnostics — which runs through K1 and K2.
+   diagnostics — which runs through K1 and K2;
+5. a real-size smoothed fit at n=2000, T=50, r=4 from the warm init
+   (``TemporalAMESmoothedVI``, 16-block updates), one K4 launch per block
+   phase;
+6. variational EM at n=2000, T=50, r=4 from a wrong start (the setting of
+   ``scripts/em_scale_probe.py`` in exact float32), whose E-steps run
+   through K4.
 
-The launch counters are zeroed just before phase 3 and read after phase 4;
-every kernel must have launched in that run.  The second-to-last line is a
-JSON object describing each kernel, the last is the device record.  Needs
-one CUDA card; without one it exits non-zero before printing any result.
+Each of phases 3-6 is a path of its own: the launch counters are zeroed
+just before it and read just after, and each path must have launched its
+kernels.  The second-to-last line is a JSON object describing each kernel
+(``launches`` summed over the paths), the last is the device record.
+Needs one CUDA card; without one it exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -44,9 +53,12 @@ KERNELS = {
     "logdet_spd": ("tame_torch/csrc/spd.cu", "tame/ops/cholesky.py:184"),
     "fused_fit": ("tame_torch/csrc/fused_fit.cu",
                   "tame/ops/fused_fit.py:165"),
+    "fused_smoother": ("tame_torch/csrc/fused_smoother.cu",
+                       "tame/ops/fused_smoother.py:111"),
 }
 REL_TOL = 1e-4     # kernel vs twin: different f32 operation order
 STATE_ATOL = 1e-4  # K3 vs twin state after a fit (tame's fused-fit bound)
+LOGDET_RTOL = 1e-5  # K4 logdet: a sum of T d logs, each exact to f32 rounding
 
 
 def require(cond: bool, msg: str) -> None:
@@ -72,7 +84,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
-    """(max abs error, max abs error / max |ref|)."""
+    """(max abs error, max abs error / max |ref|); (0, 0) for two empty
+    tensors of one shape."""
+    require(got.shape == ref.shape, f"shape {got.shape} != {ref.shape}")
+    if ref.numel() == 0:
+        return 0.0, 0.0
     err = (got - ref).abs().max().item()
     return err, err / max(ref.abs().max().item(), 1e-30)
 
@@ -81,6 +97,62 @@ def spd_batch(B: int, d: int, gen: torch.Generator):
     A = torch.randn(B, d, d, device="cuda", generator=gen)
     P = A @ A.transpose(-1, -2) / d + torch.eye(d, device="cuda")
     return P, torch.randn(B, d, device="cuda", generator=gen)
+
+
+def smoother_system(n: int, T: int, d: int, gen: torch.Generator):
+    """The smoothed fit's systems at r = (d - 2) / 2: D_t = an SPD
+    observation precision (A A'/d + I) + the prior precision, O =
+    -(Q^-1 Phi)', b ~ N(0, 1)."""
+    from tame_torch.config import ModelConfig
+    from tame_torch.inference import cavi
+    from tame_torch.models import build_params
+
+    pri = cavi.precompute_priors(build_params(ModelConfig(
+        n_nodes=n, n_time=T, latent_dim=(d - 2) // 2)).to("cuda"))
+    A = torch.randn(n, T, d, d, device="cuda", generator=gen)
+    D = (A @ A.transpose(-1, -2) / d + torch.eye(d, device="cuda")
+         + cavi._prior_precision(pri, T)[None])
+    return D, -pri.Qinv_Phi.T, torch.randn(n, T, d, device="cuda",
+                                           generator=gen)
+
+
+def phase_smoother_kernel(report: dict) -> None:
+    from tame_torch.ops import _ext
+    from tame_torch.ops import cholesky as ch
+    from tame_torch.ops import fused_smoother as fs
+
+    ext = _ext.load()
+    require(all(ext.fused_smoother_smem_bytes(d)
+                == fs.fused_smoother_smem_bytes(d) for d in ch.KERNEL_DIMS),
+            "K4 shared-memory formula differs between Python and CUDA")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    entry = report["fused_smoother"]
+    entry["max_abs_err"] = 0.0
+    # (i) one block phase of the n=2000 smoothed fit (the reported
+    # timing), (ii) one Jacobi sweep at n=2000, (iii) the smallest d with
+    # T=2, (iv) T=1, where the backward pass is empty and cross_cov is
+    # (n, 0, d, d).
+    for n, T, d in [(125, 50, 10), (2000, 50, 10), (3, 2, 4), (3, 1, 4)]:
+        D, O, b = smoother_system(n, T, d, gen)
+        k = fs.fused_smoother_kernel(D, O, b)
+        torch.cuda.synchronize()
+        t = fs.fused_smoother_twin(D, O, b)
+        errs = {name: rel_err(getattr(k, name), getattr(t, name))
+                for name in ("mean", "cov", "cross_cov")}
+        ld_rel = ((k.logdet - t.logdet).abs() / t.logdet.abs()).max().item()
+        print(f"K4 n={n} T={T} d={d}: (max_abs_err, rel) {errs}, logdet "
+              f"rel {ld_rel}")
+        require(all(e[1] <= REL_TOL for e in errs.values())
+                and ld_rel <= LOGDET_RTOL,
+                f"K4 disagrees with its twin at n={n} T={T} d={d}")
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [e[0] for e in errs.values()])
+        ms = cuda_ms(lambda: fs.fused_smoother_kernel(D, O, b))
+        plain_ms = cuda_ms(lambda: fs.fused_smoother_twin(D, O, b), reps=5,
+                           warmup=1)
+        print(f"K4 n={n} T={T} d={d}: kernel {ms} ms, twin {plain_ms} ms")
+        if "ms" not in entry:
+            entry["ms"], entry["plain_ms"] = ms, plain_ms
 
 
 def phase_kernels(report: dict) -> None:
@@ -237,6 +309,74 @@ def phase_real_size() -> None:
             "MSE did not fall to the noise floor at n=2000")
 
 
+def phase_smoothed() -> int:
+    """Returns the number of iterations run."""
+    from tame_torch import TemporalAMEModel, TemporalAMESmoothedVI
+
+    model = TemporalAMEModel(n_nodes=2000, n_time=50, latent_dim=4, seed=0)
+    model.generate_data(
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    vi = TemporalAMESmoothedVI(model, init_mode="warm", learning_rate=0.8)
+    marks[1].record()
+    h = vi.fit(max_iter=100, verbose=False)
+    marks[2].record()
+    marks[2].synchronize()
+    n_iter = len(h["elbo"])
+    init_ms, fit_ms = (marks[0].elapsed_time(marks[1]),
+                       marks[1].elapsed_time(marks[2]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mse = h["reconstruction_error"]
+    print(f"n=2000 T=50 r=4 smoothed (warm init, 16 blocks, exact "
+          f"diagnostics): warm init {init_ms} ms, {n_iter} iterations, "
+          f"converged {vi._converged}, {fit_ms / n_iter} ms/iteration, "
+          f"{fit_ms / 1000} s fit, MSE {mse[0]} -> {mse[-1]}, peak memory "
+          f"{peak} GiB")
+    require(all(math.isfinite(v) for v in h["elbo"] + mse),
+            "non-finite smoothed history")
+    # noise floor 2 R[0, 0] = 0.2, as in phase_real_size
+    require(mse[-1] < 0.9 * mse[0] and mse[-1] < 0.25,
+            "smoothed MSE did not fall to the noise floor")
+    return n_iter
+
+
+def phase_em() -> None:
+    from tame_torch import fit_em
+    from tame_torch.config import ModelConfig
+    from tame_torch.models import build_params, sample
+
+    truth = ModelConfig(n_nodes=2000, n_time=50, latent_dim=4, seed=0,
+                        ar_coefficient=0.8, rho_dyadic=0.5)
+    Y, _ = sample(build_params(truth),
+                  torch.Generator(device="cuda").manual_seed(0), 2000, 50)
+    start_cfg = ModelConfig(n_nodes=2000, n_time=50, latent_dim=4, seed=0,
+                            ar_coefficient=0.3, rho_dyadic=0.0,
+                            dyadic_variance=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_em(Y, build_params(start_cfg).to("cuda"), n_em=3,
+                 inner_max_iter=60)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = res.history
+    n_em = len(h["elbo"])
+    print(f"EM n=2000 T=50 r=4 from phi 0.3 / sigma2 1.0 / rho 0: {n_em} EM "
+          f"iterations in {wall} s ({wall / n_em} s/EM iteration, host "
+          f"clock); learned phi {h['phi'][-1]} (truth 0.8), sigma2 "
+          f"{h['sigma2'][-1]} (0.1), rho {h['rho'][-1]} (0.5); ELBO "
+          f"{h['elbo']}")
+    require(n_em == 3 and all(math.isfinite(v) for vals in h.values()
+                              for v in vals), "EM run not finite")
+    require(bool((torch.linalg.eigvalsh(res.params.Q) > 0).all()
+                 and (torch.linalg.eigvalsh(res.params.R) > 0).all()),
+            "learned Q or R is not SPD")
+    require(abs(h["phi"][-1] - 0.8) < 0.5 and abs(h["sigma2"][-1] - 0.1) < 0.9,
+            "EM did not move phi and sigma2 toward the truth")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() "
@@ -247,6 +387,7 @@ def main() -> int:
     from tame_torch.ops import _ext
     from tame_torch.ops import cholesky as ch
     from tame_torch.ops import fused_fit as ff
+    from tame_torch.ops import fused_smoother as fs
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -262,23 +403,36 @@ def main() -> int:
 
     report = {name: {} for name in KERNELS}
     phase_kernels(report)
+    phase_smoother_kernel(report)
 
     wrappers = {"spd_solve_inv": ch.spd_solve_inv_kernel,
                 "logdet_spd": ch.logdet_spd_kernel,
-                "fused_fit": ff.fused_fit_kernel}
-    for w in wrappers.values():
-        w.launches = 0
-    phase_demo()
-    after_demo = {k: w.launches for k, w in wrappers.items()}
-    phase_real_size()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"launches: demo {after_demo}, main path total {launches}")
-    require(after_demo["fused_fit"] >= 3, "demo drive did not run K3")
-    require(launches["fused_fit"] == after_demo["fused_fit"],
-            "the n=2000 fit ran K3")
-    require(launches["spd_solve_inv"] > after_demo["spd_solve_inv"]
-            and launches["logdet_spd"] > after_demo["logdet_spd"],
+                "fused_fit": ff.fused_fit_kernel,
+                "fused_smoother": fs.fused_smoother_kernel}
+
+    def drive(path, *args):
+        """Run one path with every launch counter zeroed just before it;
+        returns (its result, the counts read just after)."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = path(*args)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        print(f"launches, {path.__name__}: {counts}")
+        return out, counts
+
+    _, demo = drive(phase_demo)
+    _, good = drive(phase_real_size)
+    n_iter, smoothed = drive(phase_smoothed)
+    _, em = drive(phase_em)
+    require(demo["fused_fit"] >= 3, "demo drive did not run K3")
+    require(good["fused_fit"] == 0, "the n=2000 fit ran K3")
+    require(good["spd_solve_inv"] > 0 and good["logdet_spd"] > 0,
             "the n=2000 fit did not run K1 and K2")
+    require(smoothed["fused_smoother"] == 16 * n_iter,
+            "the smoothed fit did not launch K4 once per block phase")
+    require(em["fused_smoother"] > 0, "the EM E-steps did not run K4")
+    launches = {k: demo[k] + good[k] + smoothed[k] + em[k]
+                for k in wrappers}
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])

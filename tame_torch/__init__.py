@@ -28,9 +28,16 @@ torch.backends.cudnn.allow_tf32 = False
 
 from tame_torch.config import InferenceConfig, ModelConfig  # noqa: E402
 from tame_torch.inference import (  # noqa: E402
+    EMResult,
     TemporalAMECaviVI,
     TemporalAMENaiveMFVI,
+    TemporalAMESmoothedVI,
     TemporalAMEStructuredMFVI,
+    em_update_params,
+    exact_elbo,
+    fit_cavi_smoothed,
+    fit_em,
+    warm_init_smoothed_state,
 )
 from tame_torch.models import BaseAMEModel, TemporalAMEModel  # noqa: E402
 
@@ -44,4 +51,11 @@ __all__ = [
     "TemporalAMECaviVI",
     "TemporalAMENaiveMFVI",
     "TemporalAMEStructuredMFVI",
+    "TemporalAMESmoothedVI",
+    "fit_cavi_smoothed",
+    "warm_init_smoothed_state",
+    "fit_em",
+    "em_update_params",
+    "EMResult",
+    "exact_elbo",
 ]

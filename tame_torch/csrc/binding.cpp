@@ -139,9 +139,50 @@ void fused_fit(torch::Tensor W0, torch::Tensor W1, torch::Tensor eta_a,
                "fused_fit");
 }
 
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor, torch::Tensor>
+fused_smoother(torch::Tensor D, torch::Tensor O, torch::Tensor b) {
+  check(D, "D");
+  check(O, "O");
+  check(b, "b");
+  TORCH_CHECK(D.dim() == 4 && D.size(2) == D.size(3),
+              "D must be (n, T, d, d)");
+  TORCH_CHECK(D.size(0) <= std::numeric_limits<int>::max(),
+              "batch too large");
+  const int n = static_cast<int>(D.size(0)), T = static_cast<int>(D.size(1)),
+            d = static_cast<int>(D.size(2));
+  TORCH_CHECK(T >= 1, "the fused smoother needs T >= 1");
+  TORCH_CHECK(O.dim() == 2 && O.size(0) == d && O.size(1) == d,
+              "O must be (d, d)");
+  TORCH_CHECK(b.dim() == 3 && b.size(0) == n && b.size(1) == T &&
+                  b.size(2) == d,
+              "b must be (n, T, d)");
+  const c10::cuda::CUDAGuard guard(D.device());
+  auto mean = torch::empty({n, T, d}, D.options());
+  auto cov = torch::empty({n, T, d, d}, D.options());
+  auto cross = torch::empty({n, T - 1, d, d}, D.options());
+  auto logdet = torch::empty({n}, D.options());
+  check_launch(tame_fused_smoother(D.data_ptr<float>(), O.data_ptr<float>(),
+                                   b.data_ptr<float>(), mean.data_ptr<float>(),
+                                   cov.data_ptr<float>(),
+                                   cross.data_ptr<float>(),
+                                   logdet.data_ptr<float>(), n, T, d,
+                                   at::cuda::getCurrentCUDAStream()),
+               "fused_smoother");
+  return {mean, cov, cross, logdet};
+}
+
+int64_t fused_smoother_smem_bytes(int64_t d) {
+  return static_cast<int64_t>(
+      tame_fused_smoother_smem_bytes(static_cast<int>(d)));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("fused_smoother", &fused_smoother,
+        "K4: batched block-tridiagonal forward-backward smoother");
+  m.def("fused_smoother_smem_bytes", &fused_smoother_smem_bytes,
+        "shared memory of one K4 block for state dimension d");
   m.def("spd_solve_inv", &spd_solve_inv, "K1: batched SPD solve (+ inverse)");
   m.def("logdet_spd", &logdet_spd, "K2: batched SPD log-determinant");
   m.def("fused_fit", &fused_fit, "K3: whole CAVI fit in one thread block");

@@ -43,3 +43,16 @@ size_t tame_fused_fit_smem_bytes(int n, int T, int d, int num_blocks);
 
 cudaError_t tame_fused_fit(const FusedFitArgs& args, int d,
                            cudaStream_t stream);
+
+// K4: batched block-tridiagonal forward-backward smoother, one thread block
+// per node.  D (n, T, d, d) SPD diagonal blocks, O (d, d) coupling, b (n, T,
+// d); out mean (n, T, d), cov (n, T, d, d), cross (n, T-1, d, d), logdet
+// (n,).  float32, row-major.
+cudaError_t tame_fused_smoother(const float* D, const float* O, const float* b,
+                                float* mean, float* cov, float* cross,
+                                float* logdet, int n, int T, int d,
+                                cudaStream_t stream);
+
+// Static shared memory of one K4 block (bytes); 0 for a d with no
+// instantiation.
+size_t tame_fused_smoother_smem_bytes(int d);

@@ -341,6 +341,40 @@ def cavi_step_jacobi(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
                      X_cov=lr * cov_new + (1.0 - lr) * state.X_cov)
 
 
+def _block_obs_terms(X_mean: torch.Tensor, obs: ObsConstants,
+                     R_inv: torch.Tensor, sl: slice, corrected: bool):
+    """Observation precision (bs, T, d, d) and natural parameter (bs, T, d)
+    of the nodes in ``sl``, from fresh global statistics of ``X_mean``
+    (O(n T r^2) besides the two ``W @ Z`` contractions)."""
+    n, T, d = X_mean.shape
+    r = (d - 2) // 2
+    p, q = R_inv[0, 0], R_inv[0, 1]
+    a_all, b_all, U, V = dyad_ops.split_state(X_mean, r)
+    Ub, Vb = U[sl], V[sl]
+    sU = U.sum(0)[None] - Ub
+    sV = V.sum(0)[None] - Vb
+    GUU = _gram(U, U)[None] - _outer(Ub, Ub)
+    GVV = _gram(V, V)[None] - _outer(Vb, Vb)
+    GVU = _gram(V, U)[None] - _outer(Vb, Ub)
+    P = _P_from_partner_stats(float(n - 1), sU, sV, GUU, GVV, GVU, R_inv)
+
+    etaU = _eta_contract(obs.W0[sl], V)
+    etaV = _eta_contract(obs.W1[sl], U)
+    eta_a, eta_b = obs.eta_a[sl], obs.eta_b[sl]
+    if corrected:
+        cc = p * b_all + q * a_all
+        ddc = q * b_all + p * a_all
+        cb, db = cc[sl], ddc[sl]
+        eta_a = eta_a - (cc.sum(0)[None] - cb)
+        eta_b = eta_b - (ddc.sum(0)[None] - db)
+        etaU = etaU - (torch.einsum("jt,jtr->tr", cc, V)[None]
+                       - cb[..., None] * Vb)
+        etaV = etaV - (torch.einsum("jt,jtr->tr", ddc, U)[None]
+                       - db[..., None] * Ub)
+    eta = torch.cat([eta_a[..., None], eta_b[..., None], etaU, etaV], -1)
+    return P, eta
+
+
 def cavi_step_block(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
                     params: AMEParams, structure: str, lr: float,
                     num_blocks: int, corrected: bool = False) -> CaviState:
@@ -351,45 +385,18 @@ def cavi_step_block(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
     Works on a copy of ``state`` and updates it block by block in place.
     """
     n, T, d = state.X_mean.shape
-    r = (d - 2) // 2
     if n % num_blocks != 0:
         raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
     bs = n // num_blocks
     solver = _SOLVERS[structure]
     prior_P = _prior_precision(pri, T)[None]
-    p, q = params.R_inv[0, 0], params.R_inv[0, 1]
     X_mean, X_cov = state.X_mean.clone(), state.X_cov.clone()
-    a_all, b_all, U, V = dyad_ops.split_state(X_mean, r)   # views
 
     for blk in range(num_blocks):
         sl = slice(blk * bs, (blk + 1) * bs)
-        Ub, Vb = U[sl], V[sl]
-        # Fresh global sufficient statistics (O(n T r^2)).
-        sU = U.sum(0)[None] - Ub
-        sV = V.sum(0)[None] - Vb
-        GUU = _gram(U, U)[None] - _outer(Ub, Ub)
-        GVV = _gram(V, V)[None] - _outer(Vb, Vb)
-        GVU = _gram(V, U)[None] - _outer(Vb, Ub)
-        P = _P_from_partner_stats(float(n - 1), sU, sV, GUU, GVV, GVU,
-                                  params.R_inv) + prior_P
-
-        etaU = _eta_contract(obs.W0[sl], V)
-        etaV = _eta_contract(obs.W1[sl], U)
-        eta_a, eta_b = obs.eta_a[sl], obs.eta_b[sl]
-        if corrected:
-            cc = p * b_all + q * a_all
-            ddc = q * b_all + p * a_all
-            cb, db = cc[sl], ddc[sl]
-            eta_a = eta_a - (cc.sum(0)[None] - cb)
-            eta_b = eta_b - (ddc.sum(0)[None] - db)
-            etaU = etaU - (torch.einsum("jt,jtr->tr", cc, V)[None]
-                           - cb[..., None] * Vb)
-            etaV = etaV - (torch.einsum("jt,jtr->tr", ddc, U)[None]
-                           - db[..., None] * Ub)
-        eta = torch.cat([eta_a[..., None], eta_b[..., None], etaU, etaV], -1)
+        P, eta = _block_obs_terms(X_mean, obs, params.R_inv, sl, corrected)
         eta = eta + _prior_nat_param(pri, X_mean[sl])
-
-        mu_new, cov_new = solver(P, eta)
+        mu_new, cov_new = solver(P + prior_P, eta)
         X_mean[sl] = lr * mu_new + (1.0 - lr) * X_mean[sl]
         X_cov[sl] = lr * cov_new + (1.0 - lr) * X_cov[sl]
     return CaviState(X_mean=X_mean, X_cov=X_cov)
@@ -423,6 +430,62 @@ def init_state(generator: torch.Generator, n: int, T: int, d: int,
                      + eye * 0.05)
     return CaviState(X_mean=X_mean.to(device or gdev),
                      X_cov=X_cov.to(device or gdev))
+
+
+def warm_init_state(Y: torch.Tensor, params: AMEParams, *,
+                    structure: str = "full", cov_init_scale: float = 0.5,
+                    n_power_iters: int = 4,
+                    probe: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    obs_mask=None) -> CaviState:
+    """Data-driven initialization (dense path of the JAX
+    ``warm_init_state``): a two-way fit of the time-averaged network for
+    the additive effects plus the top-r singular pairs of its residual for
+    U/V, broadcast over T, with deterministic per-structure covariances.
+
+    * additive: ``a_i = rowmean_i - grand/2``, ``b_j = colmean_j -
+      grand/2`` over off-diagonal entries;
+    * multiplicative: subspace iteration (power iterations + QR) from the
+      (n, r) ``probe`` for the top-r singular triplets of the additive
+      residual; ``U = u sqrt(s)``, ``V = v sqrt(s)``.
+
+    ``probe`` defaults to a standard-normal draw from ``generator`` (a CPU
+    generator seeded 0 when that is None too).  The JAX function draws it
+    from ``PRNGKey(0)``, so the two agree only when handed one probe.
+    """
+    if obs_mask is not None:
+        raise NotImplementedError("obs_mask is not ported yet")
+    n, _, T, _ = Y.shape
+    d = params.Phi.shape[0]
+    r = (d - 2) // 2
+    w = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)
+    M = Y[..., 0].mean(-1) * w
+    row_mean = M.sum(1) / torch.clamp(w.sum(1), min=1.0)
+    col_mean = M.sum(0) / torch.clamp(w.sum(0), min=1.0)
+    grand = M.sum() / torch.clamp(w.sum(), min=1.0)
+    a = row_mean - grand / 2.0
+    b = col_mean - grand / 2.0
+
+    resid = (M - a[:, None] - b[None, :]) * w
+    if probe is None:
+        gen = (generator if generator is not None
+               else torch.Generator().manual_seed(0))
+        probe = torch.randn(n, r, generator=gen, device=gen.device)
+    Z = resid @ probe.to(M)
+    for _ in range(n_power_iters):
+        Z, _ = torch.linalg.qr(resid @ (resid.T @ Z))
+    u_s, sing, vt = torch.linalg.svd(Z.T @ resid, full_matrices=False)
+    scale = torch.sqrt(torch.clamp(sing, min=1e-12))
+    U = (Z @ u_s) * scale[None, :]
+    V = vt.T * scale[None, :]
+
+    centroid = torch.cat([a[:, None], b[:, None], U, V], -1)
+    X_mean = centroid[:, None, :].expand(n, T, d).clone()
+    var = {"diag": 0.5, "full": cov_init_scale + 0.1,
+           "block": cov_init_scale + 0.05}[structure]
+    eye = torch.eye(d, dtype=M.dtype, device=M.device)
+    return CaviState(X_mean=X_mean, X_cov=(eye * var).expand(n, T, d, d)
+                     .clone())
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,10 @@ class TemporalAMECaviVI(torch.nn.Module):
 
     ``structure`` is ``"diag"``, ``"full"`` or ``"block"`` (naive /
     good-SMF / bad-SMF); ``update_mode`` ``"block"`` (block Gauss-Seidel,
-    default) or ``"jacobi"``.  ``mixed_precision``, ``diag_mode="stats"``,
-    ``init_mode="warm"``, ``update_mode="seq"`` and ``mask`` keep the JAX
+    default) or ``"jacobi"``; ``init_mode`` ``"random"`` or ``"warm"``
+    (:func:`~tame_torch.inference.cavi.warm_init_state`, its subspace probe
+    drawn from a generator seeded ``seed``).  ``mixed_precision``,
+    ``diag_mode="stats"``, ``update_mode="seq"`` and ``mask`` keep the JAX
     engine's keywords but are not ported yet and raise.
     """
 
@@ -43,14 +45,11 @@ class TemporalAMECaviVI(torch.nn.Module):
                 "Model has no data. Call model.generate_data() first.")
         unported = {"mixed_precision": mixed_precision,
                     "diag_mode='stats'": diag_mode != "exact",
-                    "init_mode='warm'": init_mode == "warm",
                     "update_mode='seq'": update_mode == "seq",
                     "mask": mask is not None}
         for name, used in unported.items():
             if used:
                 raise NotImplementedError(f"{name} is not ported yet")
-        if init_mode != "random":
-            raise ValueError(f"unknown init_mode '{init_mode}'")
         if structure is not None:
             self.structure = structure
         self.model = model
@@ -70,9 +69,18 @@ class TemporalAMECaviVI(torch.nn.Module):
             "elbo": [], "reconstruction_error": []}
         self._converged = self._diverged = False
 
-        state = cavi.init_state(torch.Generator().manual_seed(seed), self.n,
-                                self.T, self.d, self.structure, init_scale,
-                                cov_init_scale, device=self.Y.device)
+        if init_mode == "warm":
+            state = cavi.warm_init_state(
+                self.Y, self.params, structure=self.structure,
+                cov_init_scale=cov_init_scale,
+                generator=torch.Generator().manual_seed(seed))
+        elif init_mode == "random":
+            state = cavi.init_state(
+                torch.Generator().manual_seed(seed), self.n, self.T, self.d,
+                self.structure, init_scale, cov_init_scale,
+                device=self.Y.device)
+        else:
+            raise ValueError(f"unknown init_mode '{init_mode}'")
         self.register_buffer("X_mean", state.X_mean)
         self.register_buffer("X_cov", state.X_cov)
 

@@ -1,0 +1,456 @@
+"""Smoothed CAVI: per-node joint-trajectory variational family, dense
+float32 path (counterpart of :mod:`tame.inference.smoothed`).
+
+Each node's whole trajectory is one joint Gaussian
+
+    q(X) = prod_i q(X_i^{0:T-1}),
+
+whose exact coordinate update, given the other nodes' means, is the
+block-tridiagonal system solved by AR(1) forward-backward smoothing
+(:func:`tame_torch.ops.fused_smoother.fused_smoother`: the K4 kernel on
+the card, its plain twin :mod:`tame_torch.ops.tridiag` on the CPU):
+
+    D_t = P_obs[t] + [t=0] Sigma0^-1 + [t>0] Q^-1 + [t<T-1] Phi' Q^-1 Phi
+    O   = -Phi' Q^-1        (precision block (t, t+1))
+    b_t = eta_obs[t]        (time coupling handled exactly)
+
+The ELBO has exact cross-time terms: transition expectations use the lag-1
+cross-covariances and the entropy the trajectory log-determinants.
+Damping applies to the means only; covariances come fresh from each solve.
+
+:func:`fit_cavi_smoothed` is a Python loop with one host read of the ELBO
+per iteration and the JAX loop's stopping rule (``cavi._StopRule``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from tame_torch.inference import cavi
+from tame_torch.models.params import AMEParams, _fields_as_tensors
+from tame_torch.ops import dyad as dyad_ops
+from tame_torch.ops.fused_smoother import (
+    fused_smoother,
+    fused_smoother_supported,
+)
+
+_LOG2PI = 1.8378770664093453
+
+
+class SmoothedState(NamedTuple):
+    X_mean: torch.Tensor    # (n, T, d)
+    X_cov: torch.Tensor     # (n, T, d, d)   marginal covariances
+    X_cross: torch.Tensor   # (n, T-1, d, d) Cov(X_t, X_{t+1}) per node
+    logdets: torch.Tensor   # (n,)           log det of each joint precision
+
+
+class SmoothedFitResult(NamedTuple):
+    state: SmoothedState
+    elbo_history: torch.Tensor   # (buf,) on the CPU, NaN past the stop
+    mse_history: torch.Tensor    # (buf,)
+    n_iter: int
+    converged: bool
+    diverged: bool
+    last_elbo: float             # convergence carry for a follow-up fit
+    pat_count: int
+
+
+def smoothed_state_from_numpy(s, device=None,
+                              dtype=torch.float32) -> SmoothedState:
+    """Port's :class:`SmoothedState` from any object (or dict) holding its
+    four fields as arrays (e.g. the JAX ``SmoothedState``)."""
+    return SmoothedState(**_fields_as_tensors(s, SmoothedState._fields,
+                                              device, dtype))
+
+
+def _fresh_covariances(n: int, T: int, d: int, dtype, device):
+    """Independent 0.5 I blocks: marginal covariances, zero cross terms and
+    the log det of the joint precision (2 I per block)."""
+    eye = torch.eye(d, dtype=dtype, device=device)
+    return ((eye * 0.5).expand(n, T, d, d).clone(),
+            torch.zeros(n, max(T - 1, 0), d, d, dtype=dtype, device=device),
+            torch.full((n,), -T * d * math.log(0.5), dtype=dtype,
+                       device=device))
+
+
+def init_smoothed_state(generator: torch.Generator, n: int, T: int, d: int,
+                        init_scale: float = 0.1,
+                        device=None) -> SmoothedState:
+    """Random init: means ``N(0, init_scale^2)`` drawn from ``generator``
+    on its device, then moved to ``device``."""
+    X_mean = torch.randn(n, T, d, generator=generator,
+                         device=generator.device) * init_scale
+    X_mean = X_mean.to(device or generator.device)
+    return SmoothedState(X_mean, *_fresh_covariances(
+        n, T, d, X_mean.dtype, X_mean.device))
+
+
+def warm_init_smoothed_state(Y: torch.Tensor, params: AMEParams,
+                             obs_mask=None, *,
+                             probe: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None
+                             ) -> SmoothedState:
+    """Data-driven warm start: the centroid decomposition of
+    :func:`tame_torch.inference.cavi.warm_init_state` (``probe`` /
+    ``generator`` as there) with the smoothed family's deterministic
+    covariances."""
+    warm = cavi.warm_init_state(Y, params, structure="full",
+                                obs_mask=obs_mask, probe=probe,
+                                generator=generator)
+    n, T, d = warm.X_mean.shape
+    return SmoothedState(warm.X_mean, *_fresh_covariances(
+        n, T, d, warm.X_mean.dtype, warm.X_mean.device))
+
+
+def smoothed_step(state: SmoothedState, obs: cavi.ObsConstants,
+                  pri: cavi.PriorMatrices, params: AMEParams, lr: float,
+                  corrected: bool = True) -> SmoothedState:
+    """One simultaneous update: every node's trajectory re-solved exactly
+    against the other nodes' current means, in one
+    :func:`fused_smoother` call."""
+    n, T, d = state.X_mean.shape
+    r = (d - 2) // 2
+    _, _, U, V = dyad_ops.split_state(state.X_mean, r)
+    D = (cavi._obs_precision(U, V, params.R_inv)
+         + cavi._prior_precision(pri, T)[None])
+    b = cavi._obs_nat_param(obs, state.X_mean, r, params.R_inv, corrected)
+    out = fused_smoother(D, -pri.Qinv_Phi.T, b)
+    return SmoothedState(X_mean=lr * out.mean + (1.0 - lr) * state.X_mean,
+                         X_cov=out.cov, X_cross=out.cross_cov,
+                         logdets=out.logdet)
+
+
+def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
+                        pri: cavi.PriorMatrices, params: AMEParams,
+                        lr: float, num_blocks: int,
+                        corrected: bool = True) -> SmoothedState:
+    """Block Gauss-Seidel smoothed update: node blocks re-solved in
+    sequence, each block's trajectories solved exactly against the
+    freshest other-node means (fresh global statistics per phase, as
+    ``cavi.cavi_step_block``; no neighbour-mean prior coupling, time is
+    handled exactly), one :func:`fused_smoother` call per block.  Works
+    on a copy of ``state``, updated in place."""
+    n, T, d = state.X_mean.shape
+    if n % num_blocks != 0:
+        raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
+    bs = n // num_blocks
+    prior_D = cavi._prior_precision(pri, T)[None]
+    O = -pri.Qinv_Phi.T
+    X_mean = state.X_mean.clone()
+    X_cov, X_cross = state.X_cov.clone(), state.X_cross.clone()
+    logdets = state.logdets.clone()
+
+    for blk in range(num_blocks):
+        sl = slice(blk * bs, (blk + 1) * bs)
+        D_obs, bvec = cavi._block_obs_terms(X_mean, obs, params.R_inv, sl,
+                                            corrected)
+        out = fused_smoother(D_obs + prior_D, O, bvec)
+        X_mean[sl] = lr * out.mean + (1.0 - lr) * X_mean[sl]
+        X_cov[sl] = out.cov
+        X_cross[sl] = out.cross_cov
+        logdets[sl] = out.logdet
+    return SmoothedState(X_mean=X_mean, X_cov=X_cov, X_cross=X_cross,
+                         logdets=logdets)
+
+
+# ---------------------------------------------------------------------------
+# ELBO
+# ---------------------------------------------------------------------------
+
+def smoothed_elbo(Y: torch.Tensor, params: AMEParams,
+                  pri: cavi.PriorMatrices, state: SmoothedState,
+                  mu_dyadic: Optional[torch.Tensor] = None,
+                  obs_mask=None) -> torch.Tensor:
+    """ELBO with exact cross-time transition terms and trajectory entropy;
+    the likelihood uses the structured engines' plug-in + trace-correction
+    convention, so values are comparable to Good SMF."""
+    if obs_mask is not None:
+        raise NotImplementedError("obs_mask is not ported yet")
+    n, T, d = state.X_mean.shape
+    r = (d - 2) // 2
+    if mu_dyadic is None:
+        mu_dyadic = dyad_ops.dyadic_mean_temporal(state.X_mean, r)
+    resid = Y - mu_dyadic
+    p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
+    e0, e1 = resid[..., 0], resid[..., 1]
+    quad = p_ * (e0 * e0 + e1 * e1) + 2.0 * q_ * (e0 * e1)
+    mask = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)[:, :, None]
+    quad_sum = 0.5 * torch.sum(quad * mask)
+    return smoothed_elbo_from_quad(quad_sum, params, pri, state)
+
+
+def smoothed_elbo_from_quad(quad_sum: torch.Tensor, params: AMEParams,
+                            pri: cavi.PriorMatrices,
+                            state: SmoothedState) -> torch.Tensor:
+    """Smoothed ELBO given ``sum_{i<j,t} resid' R^-1 resid``; every other
+    term depends only on the variational state."""
+    n, T, d = state.X_mean.shape
+    tr_cov = torch.diagonal(state.X_cov, dim1=-2, dim2=-1).sum(-1)
+    n_dyads = n * (n - 1) // 2 * T
+    wsum = (n - 1) * torch.sum(tr_cov)
+    log_lik = -0.5 * (quad_sum + n_dyads * (pri.logdet_R + 2.0 * _LOG2PI))
+    corr = 0.1 * torch.trace(params.R_inv) / d * wsum
+    log_lik = log_lik - 0.5 * corr
+    prior0, priort, entropy = smoothed_prior_entropy(params, pri, state)
+    return log_lik + prior0 + priort + entropy
+
+
+def smoothed_prior_entropy(params: AMEParams, pri: cavi.PriorMatrices,
+                           state: SmoothedState) -> tuple:
+    """The likelihood-independent ELBO terms ``(prior0, priort,
+    entropy)``: exact cross-time transition expectations
+
+        E[(x_t - Phi x_{t-1})' Q^-1 (...)] = resid-quad(means)
+            + tr(Q^-1 Sig_t) + tr(Phi' Q^-1 Phi Sig_{t-1})
+            - 2 tr(Q^-1 Phi C_{t-1,t})
+
+    and the joint-trajectory entropy ``0.5 (T d (1 + log 2 pi) -
+    logdet P)`` per node."""
+    n, T, d = state.X_mean.shape
+    mu0 = state.X_mean[:, 0]
+    quad0 = torch.einsum("ia,ab,ib->", mu0, pri.Sigma0_inv, mu0)
+    trace0 = torch.einsum("ab,iba->", pri.Sigma0_inv, state.X_cov[:, 0])
+    prior0 = -0.5 * (quad0 + trace0
+                     + n * (pri.logdet_Sigma0 + d * _LOG2PI))
+    if T > 1:
+        residt = state.X_mean[:, 1:] - state.X_mean[:, :-1] @ params.Phi.T
+        quadt = torch.einsum("ita,ab,itb->", residt, pri.Q_inv, residt)
+        tr_t = torch.einsum("ab,itba->", pri.Q_inv, state.X_cov[:, 1:])
+        tr_prev = torch.einsum("ab,itba->", pri.PhiT_Qinv_Phi,
+                               state.X_cov[:, :-1])
+        tr_cross = torch.einsum("ab,itba->", pri.Qinv_Phi, state.X_cross)
+        priort = -0.5 * (quadt + tr_t + tr_prev - 2.0 * tr_cross
+                         + n * (T - 1) * (pri.logdet_Q + d * _LOG2PI))
+    else:
+        priort = state.X_mean.new_zeros(())
+    entropy = 0.5 * (n * T * d * (1.0 + _LOG2PI) - torch.sum(state.logdets))
+    return prior0, priort, entropy
+
+
+# ---------------------------------------------------------------------------
+# Full fit
+# ---------------------------------------------------------------------------
+
+def _exact_diagnostics(Y, params, pri, state):
+    """(ELBO, reconstruction MSE) from the exact dyadic residuals."""
+    n, _, T, _ = Y.shape
+    r = (state.X_mean.shape[-1] - 2) // 2
+    fwd = dyad_ops.dyadic_fwd_temporal(state.X_mean, r)
+    sq, cross = dyad_ops.residual_stats_from_fwd(Y, fwd)
+    quad_sum = params.R_inv[0, 0] * sq + params.R_inv[0, 1] * cross
+    elbo = smoothed_elbo_from_quad(quad_sum, params, pri, state)
+    return elbo, 2.0 * sq / (n * (n - 1) * T)
+
+
+def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
+                      init: SmoothedState, *, max_iter: int = 100,
+                      learning_rate=0.8, tolerance=1e-4, patience: int = 3,
+                      corrected: bool = True, fused="auto",
+                      smoother: str = "auto", update_mode: str = "auto",
+                      num_blocks=None, mixed_precision: bool = False,
+                      diag_mode: str = "exact", carry_elbo=None,
+                      carry_patience: int = 0,
+                      mask=None) -> SmoothedFitResult:
+    """Run smoothed CAVI to convergence (the JAX ``fit_cavi_smoothed``
+    contract on the dense float32 path).
+
+    Every smooth goes through
+    :func:`~tame_torch.ops.fused_smoother.fused_smoother`: K4 on a CUDA
+    ``Y`` (which raises outside :func:`fused_smoother_supported`), its
+    plain twin on a CPU one.  ``fused`` keeps the JAX keyword and is only
+    checked: ``True`` raises up front outside the envelope and together
+    with ``smoother="parallel"``.  ``smoother``: ``"auto"``/``"sequential"``.
+    ``update_mode``: ``"jacobi"`` (:func:`smoothed_step`), ``"block"``
+    (:func:`smoothed_step_block`, ``num_blocks`` defaulting to the largest
+    divisor of n that is <= 16) or ``"auto"`` (block once n >= 256).
+
+    Stops once the relative ELBO change stays below ``tolerance`` for
+    ``patience`` consecutive iterations, or when the ELBO goes non-finite
+    (``diverged``).  Histories are NaN-padded buffers of the next power of
+    two >= max(max_iter, 64).  ``carry_elbo``/``carry_patience`` seed the
+    stopping rule from a previous segment's ``last_elbo``/``pat_count``.
+
+    Not ported yet (raise ``NotImplementedError``): ``mask``,
+    ``mixed_precision``, ``diag_mode="stats"``, ``smoother="parallel"``.
+    """
+    if diag_mode not in ("exact", "stats"):
+        raise ValueError(f"unknown diag_mode: {diag_mode!r}")
+    if smoother not in ("auto", "sequential", "parallel"):
+        raise ValueError(f"unknown smoother: {smoother!r}")
+    if update_mode not in ("auto", "jacobi", "block"):
+        raise ValueError(f"unknown update_mode: {update_mode!r}")
+    if fused not in ("auto", True, False):
+        raise ValueError(f"unknown fused: {fused!r}")
+    if smoother == "parallel" and fused is True:
+        raise ValueError("fused=True and smoother='parallel' are mutually "
+                         "exclusive solver choices; drop one")
+    unported = {"mask": mask is not None,
+                "mixed_precision": mixed_precision,
+                "diag_mode='stats'": diag_mode == "stats",
+                "smoother='parallel'": smoother == "parallel"}
+    for name, used in unported.items():
+        if used:
+            raise NotImplementedError(f"{name} is not ported yet")
+    buf = 64
+    while buf < max_iter:
+        buf *= 2
+    n, _, T, _ = Y.shape
+    d = init.X_mean.shape[-1]
+    if fused is True and not fused_smoother_supported(n, T, d):
+        raise ValueError(f"fused smoother unsupported for n={n}, T={T}, "
+                         f"d={d} (needs d in (4, 6, 8, 10, 12))")
+    if update_mode == "auto":
+        update_mode = "block" if n >= 256 else "jacobi"
+    if update_mode == "block" and num_blocks is None:
+        num_blocks = next(k for k in range(min(16, n), 0, -1) if n % k == 0)
+
+    obs = cavi.precompute_obs_constants(Y, params.R_inv)
+    pri = cavi.precompute_priors(params)
+    lr = float(learning_rate)
+    eh = np.full(buf, np.nan, np.float32)
+    mh = np.full(buf, np.nan, np.float32)
+    rule = cavi._StopRule(carry_elbo, carry_patience, tolerance, patience)
+    state = init
+    it = 0
+    while it < max_iter and rule.running:
+        if update_mode == "block":
+            state = smoothed_step_block(state, obs, pri, params, lr,
+                                        num_blocks, corrected)
+        else:
+            state = smoothed_step(state, obs, pri, params, lr, corrected)
+        elbo_t, mse_t = _exact_diagnostics(Y, params, pri, state)
+        elbo, mse = torch.stack([elbo_t, mse_t]).tolist()
+        eh[it], mh[it] = elbo, mse
+        rule.update(elbo)
+        it += 1
+    return SmoothedFitResult(state=state, elbo_history=torch.from_numpy(eh),
+                             mse_history=torch.from_numpy(mh), n_iter=it,
+                             converged=rule.converged,
+                             diverged=rule.diverged,
+                             last_elbo=float(rule.prev), pat_count=rule.pat)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+class TemporalAMESmoothedVI(torch.nn.Module):
+    """Engine for the smoothed (joint-trajectory) family, an ``nn.Module``
+    whose buffers are the variational state on the device of the model's
+    ``Y``: ``X_mean``, ``X_cov`` (marginal covariances), ``X_cross``
+    (lag-1 cross-covariances) and ``logdets``.
+
+    ``init_mode="warm"`` starts from
+    :func:`warm_init_smoothed_state` (subspace probe from a CPU generator
+    seeded 0, as the JAX engine uses ``PRNGKey(0)``); ``"random"`` from
+    :func:`init_smoothed_state` seeded ``seed``.  ``mixed_precision``,
+    ``diag_mode="stats"``, ``mask`` and checkpointed fits keep the JAX
+    engine's keywords but are not ported yet and raise.
+    """
+
+    structure = "smoothed"
+
+    def __init__(self, model, learning_rate: float = 0.8,
+                 init_scale: float = 0.1, seed: int = 42,
+                 corrected: bool = True, init_mode: str = "random",
+                 update_mode: str = "auto", num_blocks=None,
+                 mixed_precision: bool = False, diag_mode: str = "exact",
+                 mask=None):
+        super().__init__()
+        if model.Y is None:
+            raise ValueError(
+                "Model has no data. Call model.generate_data() first.")
+        unported = {"mixed_precision": mixed_precision,
+                    "diag_mode='stats'": diag_mode == "stats",
+                    "mask": mask is not None}
+        for name, used in unported.items():
+            if used:
+                raise NotImplementedError(f"{name} is not ported yet")
+        self.model = model
+        self.Y = torch.as_tensor(model.Y)
+        self.n, self.T, self.d, self.r = model.n, model.T, model.d, model.r
+        self.lr = learning_rate
+        self.seed = seed
+        self.corrected = corrected
+        self.update_mode = update_mode
+        self.num_blocks = num_blocks
+        self.diag_mode = diag_mode
+        self.params = model.params.to(self.Y.device, self.Y.dtype)
+        self.history = {"elbo": [], "reconstruction_error": []}
+        self._converged = self._diverged = False
+        if init_mode == "warm":
+            st = warm_init_smoothed_state(self.Y, self.params)
+        elif init_mode == "random":
+            st = init_smoothed_state(torch.Generator().manual_seed(seed),
+                                     self.n, self.T, self.d, init_scale,
+                                     device=self.Y.device)
+        else:
+            raise ValueError(f"unknown init_mode '{init_mode}'")
+        for name, value in st._asdict().items():
+            self.register_buffer(name, value)
+
+    def _state(self) -> SmoothedState:
+        return SmoothedState(self.X_mean, self.X_cov, self.X_cross,
+                             self.logdets)
+
+    def fit(self, max_iter: int = 100, tolerance: float = 1e-4,
+            verbose: bool = True, check_every: int = 10,
+            checkpoint_every=None, ckpt_dir=None, resume: bool = False):
+        """Run smoothed CAVI to convergence from the current state; the
+        history grows by the iterations run."""
+        if checkpoint_every or ckpt_dir is not None or resume:
+            raise NotImplementedError(
+                "checkpointed smoothed fits are not ported yet")
+        start = len(self.history["elbo"])
+        result = fit_cavi_smoothed(
+            self.Y, self.params, self._state(), max_iter=max_iter,
+            learning_rate=self.lr, tolerance=tolerance,
+            corrected=self.corrected, update_mode=self.update_mode,
+            num_blocks=self.num_blocks, diag_mode=self.diag_mode)
+        for name, value in result.state._asdict().items():
+            setattr(self, name, value)
+        n_iter = result.n_iter
+        self.history["elbo"].extend(result.elbo_history[:n_iter].tolist())
+        self.history["reconstruction_error"].extend(
+            result.mse_history[:n_iter].tolist())
+        self._converged, self._diverged = result.converged, result.diverged
+
+        n_total = len(self.history["elbo"])
+        if self._diverged:
+            print(f"WARNING: {self.__class__.__name__} halted at "
+                  f"iteration {n_total - 1}: ELBO became non-finite "
+                  "(try a smaller learning_rate).")
+        if verbose:
+            eh = self.history["elbo"]
+            mh = self.history["reconstruction_error"]
+            for it in range(start, n_total):
+                if (it - start) % check_every == 0 or it == n_total - 1:
+                    print(f"Iter {it:4d} | ELBO: {eh[it]:10.2f} | "
+                          f"MSE: {mh[it]:.6f}")
+        return self.history
+
+    def get_variational_means(self) -> torch.Tensor:
+        return self.X_mean
+
+    def get_variational_covariances(self) -> torch.Tensor:
+        return self.X_cov
+
+    def predict_forward(self, n_steps: int = 1) -> torch.Tensor:
+        """AR(1) forward forecast from the last smoothed means:
+        (n, n_steps, d)."""
+        x = self.X_mean[:, -1]
+        preds = []
+        for _ in range(n_steps):
+            x = x @ self.params.Phi.T
+            preds.append(x)
+        return torch.stack(preds, 1)
+
+    def save_checkpoint(self, ckpt_dir) -> None:
+        raise NotImplementedError("checkpoints are not ported yet")
+
+    def load_checkpoint(self, ckpt_dir) -> None:
+        raise NotImplementedError("checkpoints are not ported yet")

@@ -134,14 +134,17 @@ class TestPackage:
     def test_imports_without_jax(self):
         code = ("import sys; sys.modules['jax'] = None; "
                 "import tame_torch, tame_torch.ops.fused_fit as ff; "
+                "import tame_torch.ops.fused_smoother as fs; "
+                "import tame_torch.inference.smoothed, "
+                "tame_torch.inference.em, tame_torch.inference.evidence; "
                 "assert 'tame' not in sys.modules; "
                 "print(ff.fused_fit_supported(15, 10, 6, structure='full', "
                 "update_mode='block', diag_mode='exact', elbo_every=1, "
-                "num_blocks=15))")
+                "num_blocks=15), fs.fused_smoother_supported(2000, 50, 10))")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
-        assert out.stdout.strip() == "True"
+        assert out.stdout.strip() == "True True"
 
     def test_tf32_off(self):
         assert tame_torch.__version__

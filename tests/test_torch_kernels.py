@@ -11,10 +11,13 @@ GPU host without it:
 import pytest
 import torch
 
+from tame_torch.config import ModelConfig
 from tame_torch.inference import cavi
-from tame_torch.models import TemporalAMEModel
+from tame_torch.inference import smoothed
+from tame_torch.models import TemporalAMEModel, build_params
 from tame_torch.ops import cholesky as tchol
 from tame_torch.ops import fused_fit as tff
+from tame_torch.ops import fused_smoother as tfs
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +26,10 @@ pytestmark = pytest.mark.cuda
 RTOL = 1e-4
 ATOL = 1e-5
 STATE_ATOL = 1e-4
+# K4 vs twin: mean/cov/cross within 1e-4 of max|twin| (f32 operation
+# order); logdet, a sum of T d logs each exact to f32 rounding, 1e-5.
+SMOOTHER_REL = 1e-4
+LOGDET_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -131,3 +138,72 @@ def test_fused_fit_divergence_halts_like_twin(cuda_device):
     t = tff.fused_fit_twin(*args, r=2, buf_size=64)
     assert k.diverged and t.diverged and k.n_iter == t.n_iter
     assert not k.converged
+
+
+def _smoother_system(n, T, d, device, seed):
+    """The smoothed fit's systems: D_t = an SPD observation precision
+    (A A'/d + I) + the prior precision, O = -(Q^-1 Phi)', b ~ N(0, 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pri = cavi.precompute_priors(build_params(ModelConfig(
+        n_nodes=n, n_time=T, latent_dim=(d - 2) // 2)).to(device))
+    A = torch.randn(n, T, d, d, device=device, generator=g)
+    D = (A @ A.transpose(-1, -2) / d + torch.eye(d, device=device)
+         + cavi._prior_precision(pri, T)[None])
+    return D, -pri.Qinv_Phi.T, torch.randn(n, T, d, device=device,
+                                           generator=g)
+
+
+@pytest.mark.parametrize("n,T,d", [(125, 50, 10), (2000, 50, 10),
+                                   (3, 2, 4), (3, 1, 4)])
+def test_fused_smoother_matches_twin(cuda_device, n, T, d):
+    D, O, b = _smoother_system(n, T, d, cuda_device, d + T)
+    k = tfs.fused_smoother_kernel(D, O, b)
+    torch.cuda.synchronize()
+    t = tfs.fused_smoother_twin(D, O, b)
+    for name in ("mean", "cov", "cross_cov"):
+        got, ref = getattr(k, name), getattr(t, name)
+        assert got.shape == ref.shape
+        if ref.numel():  # cross_cov is (n, 0, d, d) at T = 1
+            assert (got - ref).abs().max() <= SMOOTHER_REL * ref.abs().max()
+    torch.testing.assert_close(k.logdet, t.logdet, rtol=LOGDET_RTOL, atol=0)
+
+
+def test_fused_smoother_envelope_and_smem_formula(cuda_device):
+    from tame_torch.ops import _ext
+
+    ext = _ext.load()
+    for d in tchol.KERNEL_DIMS:
+        assert ext.fused_smoother_smem_bytes(d) == \
+            tfs.fused_smoother_smem_bytes(d)
+    D, O, b = _smoother_system(4, 3, 6, cuda_device, 0)
+    with pytest.raises(ValueError, match="built for d in"):
+        tfs.fused_smoother(D[..., :5, :5], O[:5, :5], b[..., :5])
+
+
+def test_smoothed_fit_runs_through_k4(cuda_device, monkeypatch):
+    model = TemporalAMEModel(n_nodes=12, n_time=5, latent_dim=2, seed=3)
+    Y = model.generate_data(device=cuda_device)
+    p = model.params.to(cuda_device)
+    init = smoothed.warm_init_smoothed_state(Y, p)
+    kw = dict(max_iter=10, tolerance=0.0, update_mode="block", num_blocks=4)
+    before = tfs.fused_smoother_kernel.launches
+    res = smoothed.fit_cavi_smoothed(Y, p, init, **kw)
+    assert tfs.fused_smoother_kernel.launches == before + 40  # one per block
+    # the same fit on the card with every smooth through the twin
+    monkeypatch.setattr(smoothed, "fused_smoother", tfs.fused_smoother_twin)
+    ref = smoothed.fit_cavi_smoothed(Y, p, init, **kw)
+    assert tfs.fused_smoother_kernel.launches == before + 40
+    torch.testing.assert_close(res.elbo_history, ref.elbo_history,
+                               rtol=RTOL, atol=0, equal_nan=True)
+
+
+def test_smoothed_fit_outside_k4_envelope_raises(cuda_device):
+    """d = 14 (r = 6) has no K4 build: on the card the fit raises, as
+    K1-K3 do, instead of falling back to the twin."""
+    model = TemporalAMEModel(n_nodes=6, n_time=3, latent_dim=6, seed=0)
+    Y = model.generate_data(device=cuda_device)
+    p = model.params.to(cuda_device)
+    init = smoothed.init_smoothed_state(
+        torch.Generator(device=cuda_device).manual_seed(0), 6, 3, 14)
+    with pytest.raises(ValueError, match="built for d in"):
+        smoothed.fit_cavi_smoothed(Y, p, init, max_iter=2)
