@@ -176,6 +176,56 @@ int64_t fused_smoother_smem_bytes(int64_t d) {
       tame_fused_smoother_smem_bytes(static_cast<int>(d)));
 }
 
+torch::Tensor masked_contract(torch::Tensor M, torch::Tensor Z) {
+  TORCH_CHECK(M.is_cuda() && M.scalar_type() == torch::kInt8 &&
+                  M.is_contiguous() && M.dim() == 3,
+              "M must be a contiguous (T, bs_pad, n_pad) int8 CUDA tensor");
+  check(Z, "Z");
+  TORCH_CHECK(Z.dim() == 3 && Z.size(1) == M.size(0), "Z must be (n, T, K)");
+  TORCH_CHECK(M.numel() <= std::numeric_limits<int>::max() &&
+                  Z.numel() <= std::numeric_limits<int>::max(),
+              "inputs too large");
+  const int T = static_cast<int>(M.size(0)),
+            bs_pad = static_cast<int>(M.size(1)),
+            n_pad = static_cast<int>(M.size(2)),
+            n = static_cast<int>(Z.size(0)), K = static_cast<int>(Z.size(2));
+  TORCH_CHECK(n <= n_pad && n_pad % 16 == 0,
+              "n_pad must be a multiple of 16 and at least n");
+  const c10::cuda::CUDAGuard guard(M.device());
+  auto out = torch::empty({bs_pad, T, K}, Z.options());
+  check_launch(tame_masked_contract(M.data_ptr<int8_t>(), Z.data_ptr<float>(),
+                                    out.data_ptr<float>(), T, bs_pad, n_pad,
+                                    n, K, at::cuda::getCurrentCUDAStream()),
+               "masked_contract");
+  return out;
+}
+
+std::tuple<torch::Tensor, torch::Tensor> dual_contract(torch::Tensor W,
+                                                       torch::Tensor Z) {
+  TORCH_CHECK(W.is_cuda() && W.scalar_type() == torch::kBFloat16 &&
+                  W.is_contiguous() && W.dim() == 3,
+              "W must be a contiguous (T, n, cols_pad) bf16 CUDA tensor");
+  check(Z, "Z");
+  TORCH_CHECK(Z.dim() == 3 && Z.size(0) == W.size(0) && Z.size(1) == W.size(1),
+              "Z must be (T, n, m)");
+  TORCH_CHECK(W.numel() <= std::numeric_limits<int>::max(), "W too large");
+  const int T = static_cast<int>(W.size(0)), n = static_cast<int>(W.size(1)),
+            cols_pad = static_cast<int>(W.size(2)),
+            m = static_cast<int>(Z.size(2));
+  TORCH_CHECK(cols_pad >= n && cols_pad % 8 == 0,
+              "cols_pad must be a multiple of 8 and at least n");
+  TORCH_CHECK(m <= 16, "dual_contract is built for m <= 16");
+  const c10::cuda::CUDAGuard guard(W.device());
+  auto row = torch::empty({T, n, m}, Z.options());
+  auto col = torch::zeros({T, n, m}, Z.options());
+  check_launch(tame_dual_contract(W.data_ptr(), Z.data_ptr<float>(),
+                                  row.data_ptr<float>(), col.data_ptr<float>(),
+                                  T, n, cols_pad, m,
+                                  at::cuda::getCurrentCUDAStream()),
+               "dual_contract");
+  return {row, col};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -188,4 +238,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fused_fit", &fused_fit, "K3: whole CAVI fit in one thread block");
   m.def("fused_fit_smem_bytes", &fused_fit_smem_bytes,
         "shared memory K3 needs for (n, T, d, num_blocks)");
+  m.def("masked_contract", &masked_contract,
+        "K5: int8 mask stripe @ bf16-rounded feature panel");
+  m.def("dual_contract", &dual_contract,
+        "K6: W @ Z and W' @ Z from one pass over bf16 data");
 }

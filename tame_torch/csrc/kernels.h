@@ -7,6 +7,7 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 // K1: mu = P^-1 eta and, when cov != nullptr, cov = P^-1.
 // P (B, d, d), eta (B, d), mu (B, d), cov (B, d, d); float32, row-major.
@@ -56,3 +57,18 @@ cudaError_t tame_fused_smoother(const float* D, const float* O, const float* b,
 // Static shared memory of one K4 block (bytes); 0 for a d with no
 // instantiation.
 size_t tame_fused_smoother_smem_bytes(int d);
+
+// K5: out[i, t, k] = sum_j M[t, i, j] bf16(Z[j, t, k]).  M (T, bs_pad,
+// n_pad) int8 with n_pad % 16 == 0 and n <= n_pad; Z (n, T, K) float32;
+// out (bs_pad, T, K) float32, every entry written.
+cudaError_t tame_masked_contract(const int8_t* M, const float* Z, float* out,
+                                 int T, int bs_pad, int n_pad, int n, int K,
+                                 cudaStream_t stream);
+
+// K6: row = W Z and col += W' Z per time step, Z rounded to bf16.  W (T, n,
+// cols_pad) bf16 (__nv_bfloat16) with cols_pad % 8 == 0, zero past column
+// n; Z (T, n, m) float32 with m <= 16; row (T, n, m) float32, every entry
+// written; col (T, n, m) float32, zeroed by the caller.
+cudaError_t tame_dual_contract(const void* W, const float* Z, float* row,
+                               float* col, int T, int n, int cols_pad, int m,
+                               cudaStream_t stream);

@@ -16,6 +16,16 @@ full float32: TF32 is off, see the package docstring).  The d x d solves and
 the entropy's log-determinants go through :mod:`tame_torch.ops.cholesky`;
 a whole small fit on the card goes through :mod:`tame_torch.ops.fused_fit`.
 
+Missing-data fits (``mask``) assemble the observation terms from masked
+partner statistics, one concatenated-panel contraction of the mask per
+phase (:func:`_masked_obs_precision`); with ``TAME_PACKED_MASK=1`` those
+contractions read the mask as int8 through K5
+(:mod:`tame_torch.ops.masked_contract`).  ``mixed_precision`` stores the
+dyad weights (and the mask) in bf16 with float32 sums
+(:func:`_eta_contract`); ``diag_mode="stats"`` computes the ELBO/MSE from
+sufficient statistics with no O(n^2 T) residual pass
+(:func:`_residual_stats_from_moments`, :func:`_masked_residual_stats`).
+
 PyTorch has no device ``while_loop``: :func:`fit_loop` is a Python loop
 that reads each iteration's ELBO on the host and applies the JAX loop's
 stopping rule in float32.  The port updates the state in place, block by
@@ -25,6 +35,7 @@ block, on its own copy of the initial state.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,6 +44,7 @@ import torch
 from tame_torch.models.params import AMEParams, _fields_as_tensors
 from tame_torch.ops import dyad as dyad_ops
 from tame_torch.ops import fused_fit
+from tame_torch.ops import masked_contract
 from tame_torch.ops.cholesky import (
     batched_logdet_spd,
     batched_spd_solve,
@@ -45,7 +57,7 @@ _LOG2PI = 1.8378770664093453  # log(2 * pi)
 class ObsConstants(NamedTuple):
     """Data-dependent quantities that are constant across CAVI iterations."""
 
-    W0: torch.Tensor     # (n, n, T)  p*y_ij + q*y_ji
+    W0: torch.Tensor     # (n, n, T)  p*y_ij + q*y_ji (f32 or bf16)
     W1: torch.Tensor     # (n, n, T)  q*y_ij + p*y_ji
     eta_a: torch.Tensor  # (n, T)     row-sums of W0
     eta_b: torch.Tensor  # (n, T)     row-sums of W1
@@ -87,18 +99,38 @@ def state_from_numpy(s, device=None, dtype=torch.float32) -> CaviState:
                                           dtype))
 
 
-def precompute_obs_constants(Y: torch.Tensor,
-                             R_inv: torch.Tensor) -> ObsConstants:
-    """Dyad weights and their row sums; constant across CAVI iterations."""
+def precompute_obs_constants(Y: torch.Tensor, R_inv: torch.Tensor,
+                             w_dtype=None) -> ObsConstants:
+    """Dyad weights and their row sums; constant across CAVI iterations.
+    ``w_dtype=torch.bfloat16`` stores the (n, n, T) weights in bf16; the
+    row sums are taken before the rounding and stay float32."""
     p, q = R_inv[0, 0], R_inv[0, 1]
     W0 = p * Y[..., 0] + q * Y[..., 1]
     W1 = q * Y[..., 0] + p * Y[..., 1]
-    return ObsConstants(W0=W0, W1=W1, eta_a=W0.sum(1), eta_b=W1.sum(1))
+    eta_a, eta_b = W0.sum(1), W1.sum(1)
+    if w_dtype is not None:
+        W0, W1 = W0.to(w_dtype), W1.to(w_dtype)
+    return ObsConstants(W0=W0, W1=W1, eta_a=eta_a, eta_b=eta_b)
 
 
 def _eta_contract(W: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
-    """``einsum("ijt,jtr->itr")``: the engine's dominant contraction."""
-    return torch.einsum("ijt,jtr->itr", W, Z)
+    """``einsum("ijt,jtr->itr")``: the engine's dominant contraction,
+    float32 out.
+
+    float32 ``W``: a float32 product.  bf16 ``W`` (mixed precision, or a
+    bf16 mask): ``Z`` is rounded to bf16 and the products are summed in
+    float32, as the JAX package's ``preferred_element_type=float32``.  On
+    the card that is one ``bmm`` with ``out_dtype=float32`` on the (t, i,
+    j) view; the CPU has no such overload, so there the bf16 values are
+    widened to float32 (each product of two bf16 values is exact in f32).
+    """
+    if W.dtype != torch.bfloat16:
+        return torch.einsum("ijt,jtr->itr", W, Z)
+    Zb = Z.to(torch.bfloat16)
+    if W.is_cuda:
+        return torch.bmm(W.permute(2, 0, 1), Zb.transpose(0, 1),
+                         out_dtype=torch.float32).transpose(0, 1)
+    return torch.einsum("ijt,jtr->itr", W.float(), Zb.float())
 
 
 def precompute_priors(params: AMEParams) -> PriorMatrices:
@@ -112,6 +144,163 @@ def precompute_priors(params: AMEParams) -> PriorMatrices:
         logdet_Q=torch.linalg.slogdet(params.Q)[1],
         logdet_R=torch.linalg.slogdet(params.R)[1],
     )
+
+
+# ---------------------------------------------------------------------------
+# Sufficient-statistics diagnostics
+# ---------------------------------------------------------------------------
+
+class DiagConstants(NamedTuple):
+    """Data statistics for the sufficient-statistics diagnostics path."""
+
+    sum_y0_sq: torch.Tensor    # scalar  sum_{ij,t} y0^2       (diag(Y) = 0)
+    sum_y0_y0T: torch.Tensor   # scalar  sum_{ij,t} y0_ij y0_ji
+    row_y0: torch.Tensor       # (n, T)  sum_j y0_ij
+    col_y0: torch.Tensor       # (n, T)  sum_i y0_ij
+
+
+def precompute_diag_constants(Y: torch.Tensor) -> DiagConstants:
+    y0 = Y[..., 0]
+    return DiagConstants(sum_y0_sq=torch.sum(y0 * y0),
+                         sum_y0_y0T=torch.sum(y0 * y0.transpose(0, 1)),
+                         row_y0=y0.sum(1), col_y0=y0.sum(0))
+
+
+def _data_mean_cross_terms(obs: ObsConstants, U: torch.Tensor,
+                           V: torch.Tensor, R_inv: torch.Tensor):
+    """Data-mean cross terms ``A = sum y0_ij u_ij`` and ``B = sum y0_ij
+    u_ji`` (``u_ij = U_i . V_j``) from one pass over W0: reciprocity makes
+    ``W1 = W0'``, so ``s1 = sum U . (W0 V) = p A + q B`` and ``s3 = sum V
+    . (W0 U) = q A + p B`` ride one contraction against ``[V | U]``."""
+    p, q = R_inv[0, 0], R_inv[0, 1]
+    r = U.shape[-1]
+    out = _eta_contract(obs.W0, torch.cat([V, U], -1))
+    s1 = torch.sum(U * out[..., :r])
+    s3 = torch.sum(V * out[..., r:])
+    denom = p * p - q * q
+    return (p * s1 - q * s3) / denom, (p * s3 - q * s1) / denom
+
+
+def _residual_stats_from_moments(dc: DiagConstants, obs: ObsConstants,
+                                 X_mean: torch.Tensor, r: int,
+                                 R_inv: torch.Tensor):
+    """``(sum_offdiag e0^2, sum_offdiag e0_ij e0_ji)`` with ``e0 = y0 -
+    m``, ``m_ij = a_i + b_j + U_i . V_j``, expanded into data constants and
+    global moments of the means: one W0 contraction
+    (:func:`_data_mean_cross_terms`) and O(n T r^2) work, no O(n^2 T)
+    pass (the JAX function's algebra)."""
+    a, b, U, V = dyad_ops.split_state(X_mean, r)
+    A, B = _data_mean_cross_terms(obs, U, V, R_inv)
+    n = a.shape[0]
+    alpha, beta = a.sum(0), b.sum(0)                       # (T,)
+    Sa2, Sb2, Sab = (a * a).sum(0), (b * b).sum(0), (a * b).sum(0)
+    sU, sV = U.sum(0), V.sum(0)                            # (T, r)
+    wU = torch.einsum("it,itr->tr", a, U)
+    wV = torch.einsum("it,itr->tr", a, V)
+    zU = torch.einsum("it,itr->tr", b, U)
+    zV = torch.einsum("it,itr->tr", b, V)
+    GUU, GVV, GVU = _gram(U, U), _gram(V, V), _gram(V, U)
+    m_ii = a + b + torch.sum(U * V, -1)
+    Smii2 = torch.sum(m_ii * m_ii)
+
+    sum_ab_sq = torch.sum(n * (Sa2 + Sb2) + 2.0 * alpha * beta)
+    cross_m = torch.sum(wU * sV) + torch.sum(zV * sU)
+    sum_m_sq = sum_ab_sq + 2.0 * cross_m + torch.sum(GUU * GVV) - Smii2
+    sum_ab_cross = torch.sum(alpha * alpha + beta * beta + 2.0 * n * Sab)
+    cross_mT = torch.sum(wV * sU) + torch.sum(zU * sV)
+    SuuT = torch.sum(GVU * GVU.transpose(-1, -2))
+    sum_m_mT = sum_ab_cross + 2.0 * cross_mT + SuuT - Smii2
+
+    y_ab = torch.sum(a * dc.row_y0) + torch.sum(b * dc.col_y0)
+    y_abT = torch.sum(a * dc.col_y0) + torch.sum(b * dc.row_y0)
+    sq = dc.sum_y0_sq - 2.0 * (y_ab + A) + sum_m_sq
+    cross = dc.sum_y0_y0T - 2.0 * (y_abT + B) + sum_m_mT
+    return sq, cross
+
+
+def _masked_residual_stats(dc: DiagConstants, obs: ObsConstants,
+                           X_mean: torch.Tensor, r: int, R_inv: torch.Tensor,
+                           mask):
+    """Masked counterpart of :func:`_residual_stats_from_moments`: the
+    residual statistics over OBSERVED dyads.  With ``Y`` zeroed at masked
+    entries the data-side terms are as dense; the model-side moments
+    become one mask contraction against a (4 + 5r + 2r^2)-column feature
+    panel, ``sum_j M_ij f(i) . g(j) = f(i) . (M g)_i``.
+
+    CONTRACT: ``mask`` is symmetric (the cross-term re-summation uses it).
+    """
+    a, b, U, V = dyad_ops.split_state(X_mean, r)
+    n, T = a.shape
+    A, B = _data_mean_cross_terms(obs, U, V, R_inv)
+    y_ab = torch.sum(a * dc.row_y0) + torch.sum(b * dc.col_y0)
+    y_abT = torch.sum(a * dc.col_y0) + torch.sum(b * dc.row_y0)
+
+    VV = _outer(V, V).reshape(n, T, r * r)
+    OVU = _outer(V, U).reshape(n, T, r * r)
+    a1, b1 = a[..., None], b[..., None]
+    Z = torch.cat([torch.ones_like(a1), a1, b1, b1 * b1, U, V, a1 * V,
+                   b1 * V, b1 * U, VV, OVU], -1)           # (n, T, K)
+    C = _mask_contract(mask, Z)
+    cnt, Ma, Mb, Mb2 = C[..., 0], C[..., 1], C[..., 2], C[..., 3]
+    MU, MV, MaV, MbV, MbU = C[..., 4:4 + 5 * r].split(r, -1)
+    MVV, MOVU = C[..., 4 + 5 * r:].split(r * r, -1)
+
+    UUo = _outer(U, U).reshape(n, T, r * r)
+    OUV = _outer(U, V).reshape(n, T, r * r)
+    U_MV = torch.sum(U * MV, -1)
+    sum_m_sq = torch.sum(a * a * cnt + 2.0 * a * Mb + Mb2 + 2.0 * a * U_MV
+                         + 2.0 * torch.sum(U * MbV, -1)
+                         + torch.sum(UUo * MVV, -1))
+    sum_m_mT = torch.sum(a * Ma + 2.0 * a * b * cnt + b * Mb
+                         + a * torch.sum(V * MU, -1)
+                         + torch.sum(V * MbU, -1) + torch.sum(U * MaV, -1)
+                         + b * U_MV + torch.sum(OUV * MOVU, -1))
+    sq = dc.sum_y0_sq - 2.0 * (y_ab + A) + sum_m_sq
+    cross = dc.sum_y0_y0T - 2.0 * (y_abT + B) + sum_m_mT
+    return sq, cross
+
+
+# ---------------------------------------------------------------------------
+# Masked contractions
+# ---------------------------------------------------------------------------
+
+class PackedMask(NamedTuple):
+    """Observation mask in K5's int8 layout
+    (:func:`tame_torch.ops.masked_contract.pack_mask`): ``blocks`` is
+    ``(num_blocks, T, bs_pad, n_pad) int8``, rows block-major."""
+
+    blocks: torch.Tensor
+
+
+def _packed_contract_all(pm: PackedMask, Z: torch.Tensor) -> torch.Tensor:
+    """Full-mask partner contraction through K5: every block stripe,
+    concatenated back to node order.  Z: (n, T, K)."""
+    nb = pm.blocks.shape[0]
+    bs = Z.shape[0] // nb
+    return torch.cat([masked_contract.packed_rows_contract(pm.blocks[k],
+                                                           Z)[:bs]
+                      for k in range(nb)])
+
+
+def _mask_contract(mask, Z: torch.Tensor) -> torch.Tensor:
+    """Masked partner contraction ``(m, T, K)``: a dense (m, n, T) mask
+    through :func:`_eta_contract`, a :class:`PackedMask` through K5."""
+    if isinstance(mask, PackedMask):
+        return _packed_contract_all(mask, Z)
+    return _eta_contract(mask, Z)
+
+
+def make_block_mask_contract(mask, bs: int):
+    """Closure contracting block ``b``'s mask rows against a feature panel
+    (``(bs, T, K)``): one K5 stripe for a :class:`PackedMask`, rows
+    ``b*bs:(b+1)*bs`` of a dense (n, n, T) mask otherwise.  Shared by the
+    CAVI and smoothed block steps."""
+    def contract(b: int, Z: torch.Tensor) -> torch.Tensor:
+        if isinstance(mask, PackedMask):
+            return masked_contract.packed_rows_contract(mask.blocks[b],
+                                                        Z)[:bs]
+        return _eta_contract(mask[b * bs:(b + 1) * bs], Z)
+    return contract
 
 
 # ---------------------------------------------------------------------------
@@ -163,13 +352,57 @@ def _obs_precision(U: torch.Tensor, V: torch.Tensor,
     return _P_from_partner_stats(float(n - 1), sU, sV, GUU, GVV, GVU, R_inv)
 
 
+def _masked_panel(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """The (n, T, 1 + 2r + 3r^2) feature panel whose masked partner sums
+    assemble the observation precision: ones (counts), U, V and the
+    outer-product columns UU, VV, VU — one concatenated contraction, so
+    the mask is read once per phase."""
+    n, T, r = U.shape
+    return torch.cat([torch.ones_like(U[..., :1]), U, V,
+                      _outer(U, U).reshape(n, T, r * r),
+                      _outer(V, V).reshape(n, T, r * r),
+                      _outer(V, U).reshape(n, T, r * r)], -1)
+
+
+def _masked_P_from_C(C: torch.Tensor, R_inv: torch.Tensor,
+                     r: int) -> torch.Tensor:
+    """Masked observation precision from the contracted panel ``C = mask @
+    _masked_panel(U, V)``."""
+    m, T = C.shape[:2]
+    sU, sV = C[..., 1:1 + r], C[..., 1 + r:1 + 2 * r]
+    GUU, GVV, GVU = (G.reshape(m, T, r, r)
+                     for G in C[..., 1 + 2 * r:].split(r * r, -1))
+    return _P_from_partner_stats(C[..., 0], sU, sV, GUU, GVV, GVU, R_inv)
+
+
+def _masked_obs_precision(Mr, U: torch.Tensor, V: torch.Tensor,
+                          R_inv: torch.Tensor) -> torch.Tensor:
+    """Observation precision ``sum_{j observed} J' R^-1 J`` under a dyad
+    mask: per-node masked counts, partner sums and partner Grams from one
+    panel contraction of ``Mr`` ((m, n, T) mask rows, 1 = observed, zero
+    diagonal, or a full-mask :class:`PackedMask`) -> (m, T, d, d)."""
+    C = _mask_contract(Mr, _masked_panel(U, V))
+    return _masked_P_from_C(C, R_inv, U.shape[-1])
+
+
+def _offset_panel(c: torch.Tensor, dd: torch.Tensor, U: torch.Tensor,
+                  V: torch.Tensor) -> torch.Tensor:
+    """``[c, dd, c V, dd U]``: the panel whose masked partner sums are the
+    corrected natural parameter's offset terms."""
+    return torch.cat([c[..., None], dd[..., None], c[..., None] * V,
+                      dd[..., None] * U], -1)
+
+
 def _obs_nat_param(obs: ObsConstants, X_mean: torch.Tensor, r: int,
-                   R_inv: torch.Tensor, corrected: bool) -> torch.Tensor:
+                   R_inv: torch.Tensor, corrected: bool,
+                   mask=None) -> torch.Tensor:
     """Observation natural parameter for every (i, t): (n, T, d).
 
     ``corrected=False`` reproduces the reference's simplification (the other
     node's additive offsets are not subtracted from ``y``);
-    ``corrected=True`` subtracts them — the exact coordinate update.
+    ``corrected=True`` subtracts them — the exact coordinate update; under
+    a ``mask`` the offset sums run over observed partners only (one mask
+    pass).  The dyad weights in ``obs`` must have been masked.
     """
     a, b, U, V = dyad_ops.split_state(X_mean, r)
     eta_a, eta_b = obs.eta_a, obs.eta_b
@@ -179,12 +412,19 @@ def _obs_nat_param(obs: ObsConstants, X_mean: torch.Tensor, r: int,
         p, q = R_inv[0, 0], R_inv[0, 1]
         c = p * b + q * a
         dd = q * b + p * a
-        eta_a = eta_a - (c.sum(0)[None] - c)
-        eta_b = eta_b - (dd.sum(0)[None] - dd)
-        etaU = etaU - (torch.einsum("jt,jtr->tr", c, V)[None]
-                       - c[..., None] * V)
-        etaV = etaV - (torch.einsum("jt,jtr->tr", dd, U)[None]
-                       - dd[..., None] * U)
+        if mask is not None:
+            C = _mask_contract(mask, _offset_panel(c, dd, U, V))
+            eta_a = eta_a - C[..., 0]
+            eta_b = eta_b - C[..., 1]
+            etaU = etaU - C[..., 2:2 + r]
+            etaV = etaV - C[..., 2 + r:]
+        else:
+            eta_a = eta_a - (c.sum(0)[None] - c)
+            eta_b = eta_b - (dd.sum(0)[None] - dd)
+            etaU = etaU - (torch.einsum("jt,jtr->tr", c, V)[None]
+                           - c[..., None] * V)
+            etaV = etaV - (torch.einsum("jt,jtr->tr", dd, U)[None]
+                           - dd[..., None] * U)
     return torch.cat([eta_a[..., None], eta_b[..., None], etaU, etaV], -1)
 
 
@@ -258,23 +498,54 @@ _SOLVERS = {"diag": _solve_diag, "full": _solve_full, "block": _solve_block}
 # ELBO
 # ---------------------------------------------------------------------------
 
+def gated_mask(mask, Y: torch.Tensor) -> torch.Tensor:
+    """An (n, n, T) observation mask as a tensor of ``Y``'s type and
+    device, its diagonal zeroed (every masked entry point gates it so)."""
+    mask = torch.as_tensor(mask, dtype=Y.dtype, device=Y.device)
+    return mask * dyad_ops.offdiag_mask(Y.shape[0], Y.dtype,
+                                        Y.device)[:, :, None]
+
+
+def _observed(Y: torch.Tensor, obs_mask: torch.Tensor):
+    """``(m, Y)``: the gated mask and ``Y`` with every unobserved entry
+    replaced by 0 through ``where``, so NaN-coded missing entries are
+    never read (0 * NaN would be NaN)."""
+    m = gated_mask(obs_mask, Y)
+    return m, torch.where(m[..., None] > 0, Y, torch.zeros((), dtype=Y.dtype,
+                                                           device=Y.device))
+
+
+def _mask_stats(mask: torch.Tensor):
+    """``(observed unordered dyad-times, observed partners per (node,
+    time))`` of a zero-diagonal symmetric mask."""
+    return 0.5 * torch.sum(mask), mask.float().sum(1)
+
+
 def compute_elbo(Y: torch.Tensor, params: AMEParams, pri: PriorMatrices,
                  state: CaviState, structure: str,
-                 mu_dyadic: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mu_dyadic: Optional[torch.Tensor] = None,
+                 obs_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ELBO with the reference's exact term structure (plug-in likelihood
     at the means, the structured policies' trace correction, Gaussian
-    priors with trace terms, Gaussian entropy)."""
+    priors with trace terms, Gaussian entropy); under ``obs_mask`` the
+    likelihood runs over observed dyads only."""
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
+    if obs_mask is None:
+        m = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)[:, :, None]
+        mask_stats = None
+    else:
+        m, Y = _observed(Y, obs_mask)
+        mask_stats = _mask_stats(m)
     if mu_dyadic is None:
         mu_dyadic = dyad_ops.dyadic_mean_temporal(state.X_mean, r)
-    m = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)[:, :, None]
     resid = Y - mu_dyadic
     p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
     e0, e1 = resid[..., 0], resid[..., 1]
     quad = p_ * (e0 * e0 + e1 * e1) + 2.0 * q_ * (e0 * e1)
     quad_sum = 0.5 * torch.sum(quad * m)
-    return _elbo_from_quad(quad_sum, params, pri, state, structure)
+    return _elbo_from_quad(quad_sum, params, pri, state, structure,
+                           mask_stats=mask_stats)
 
 
 def state_prior_terms(params: AMEParams, pri: PriorMatrices,
@@ -306,15 +577,20 @@ def gaussian_entropy(state: CaviState) -> torch.Tensor:
 
 def _elbo_from_quad(quad_sum: torch.Tensor, params: AMEParams,
                     pri: PriorMatrices, state: CaviState,
-                    structure: str) -> torch.Tensor:
+                    structure: str, mask_stats=None) -> torch.Tensor:
     """ELBO given ``sum_{i<j,t} resid' R^-1 resid``; every other term
-    depends only on the variational state."""
+    depends only on the variational state.  ``mask_stats``
+    (:func:`_mask_stats`) restricts the likelihood normalization and the
+    structured trace correction to observed dyads."""
     n, T, d = state.X_mean.shape
-    n_dyads = n * (n - 1) // 2 * T
+    n_dyads = (n * (n - 1) // 2 * T if mask_stats is None
+               else mask_stats[0])
     log_lik = -0.5 * (quad_sum + n_dyads * (pri.logdet_R + 2.0 * _LOG2PI))
     if structure in ("full", "block"):
         tr_cov = torch.diagonal(state.X_cov, dim1=-2, dim2=-1).sum(-1)
-        wsum = (n - 1) * torch.sum(tr_cov)
+        # sum_{i<j observed} (tr S_i + tr S_j) = sum_i cnt_i tr S_i
+        wsum = ((n - 1) * torch.sum(tr_cov) if mask_stats is None
+                else torch.sum(mask_stats[1] * tr_cov))
         trR = params.R_inv[0, 0] + params.R_inv[1, 1]
         log_lik = log_lik - 0.5 * (0.1 * trR / d * wsum)
     prior0, priort = state_prior_terms(params, pri, state)
@@ -327,14 +603,20 @@ def _elbo_from_quad(quad_sum: torch.Tensor, params: AMEParams,
 
 def cavi_step_jacobi(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
                      params: AMEParams, structure: str, lr: float,
-                     corrected: bool = False) -> CaviState:
+                     corrected: bool = False, mask=None) -> CaviState:
     """Simultaneous (Jacobi) update of every q(X_i^t) factor under the
-    damped update ``new = lr * closed_form + (1 - lr) * old``."""
+    damped update ``new = lr * closed_form + (1 - lr) * old``.  ``mask``
+    ((n, n, T), symmetric, zero diagonal, or a :class:`PackedMask`)
+    restricts the observation terms to observed dyads; the weights in
+    ``obs`` must have been masked."""
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
     _, _, U, V = dyad_ops.split_state(state.X_mean, r)
-    P = _obs_precision(U, V, params.R_inv) + _prior_precision(pri, T)[None]
-    eta = (_obs_nat_param(obs, state.X_mean, r, params.R_inv, corrected)
+    P_obs = (_obs_precision(U, V, params.R_inv) if mask is None
+             else _masked_obs_precision(mask, U, V, params.R_inv))
+    P = P_obs + _prior_precision(pri, T)[None]
+    eta = (_obs_nat_param(obs, state.X_mean, r, params.R_inv, corrected,
+                          mask=mask)
            + _prior_nat_param(pri, state.X_mean))
     mu_new, cov_new = _SOLVERS[structure](P, eta)
     return CaviState(X_mean=lr * mu_new + (1.0 - lr) * state.X_mean,
@@ -342,21 +624,28 @@ def cavi_step_jacobi(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
 
 
 def _block_obs_terms(X_mean: torch.Tensor, obs: ObsConstants,
-                     R_inv: torch.Tensor, sl: slice, corrected: bool):
+                     R_inv: torch.Tensor, blk: int, bs: int, corrected: bool,
+                     contract=None):
     """Observation precision (bs, T, d, d) and natural parameter (bs, T, d)
-    of the nodes in ``sl``, from fresh global statistics of ``X_mean``
-    (O(n T r^2) besides the two ``W @ Z`` contractions)."""
+    of node block ``blk``, from fresh statistics of ``X_mean``: global
+    ones (O(n T r^2) besides the two ``W @ Z`` contractions), or masked
+    partner sums through ``contract`` (:func:`make_block_mask_contract`),
+    one mask pass for the precision and one for the corrected offsets."""
     n, T, d = X_mean.shape
     r = (d - 2) // 2
+    sl = slice(blk * bs, (blk + 1) * bs)
     p, q = R_inv[0, 0], R_inv[0, 1]
     a_all, b_all, U, V = dyad_ops.split_state(X_mean, r)
     Ub, Vb = U[sl], V[sl]
-    sU = U.sum(0)[None] - Ub
-    sV = V.sum(0)[None] - Vb
-    GUU = _gram(U, U)[None] - _outer(Ub, Ub)
-    GVV = _gram(V, V)[None] - _outer(Vb, Vb)
-    GVU = _gram(V, U)[None] - _outer(Vb, Ub)
-    P = _P_from_partner_stats(float(n - 1), sU, sV, GUU, GVV, GVU, R_inv)
+    if contract is not None:
+        P = _masked_P_from_C(contract(blk, _masked_panel(U, V)), R_inv, r)
+    else:
+        sU = U.sum(0)[None] - Ub
+        sV = V.sum(0)[None] - Vb
+        GUU = _gram(U, U)[None] - _outer(Ub, Ub)
+        GVV = _gram(V, V)[None] - _outer(Vb, Vb)
+        GVU = _gram(V, U)[None] - _outer(Vb, Ub)
+        P = _P_from_partner_stats(float(n - 1), sU, sV, GUU, GVV, GVU, R_inv)
 
     etaU = _eta_contract(obs.W0[sl], V)
     etaV = _eta_contract(obs.W1[sl], U)
@@ -364,23 +653,43 @@ def _block_obs_terms(X_mean: torch.Tensor, obs: ObsConstants,
     if corrected:
         cc = p * b_all + q * a_all
         ddc = q * b_all + p * a_all
-        cb, db = cc[sl], ddc[sl]
-        eta_a = eta_a - (cc.sum(0)[None] - cb)
-        eta_b = eta_b - (ddc.sum(0)[None] - db)
-        etaU = etaU - (torch.einsum("jt,jtr->tr", cc, V)[None]
-                       - cb[..., None] * Vb)
-        etaV = etaV - (torch.einsum("jt,jtr->tr", ddc, U)[None]
-                       - db[..., None] * Ub)
+        if contract is not None:
+            C = contract(blk, _offset_panel(cc, ddc, U, V))
+            eta_a = eta_a - C[..., 0]
+            eta_b = eta_b - C[..., 1]
+            etaU = etaU - C[..., 2:2 + r]
+            etaV = etaV - C[..., 2 + r:]
+        else:
+            cb, db = cc[sl], ddc[sl]
+            eta_a = eta_a - (cc.sum(0)[None] - cb)
+            eta_b = eta_b - (ddc.sum(0)[None] - db)
+            etaU = etaU - (torch.einsum("jt,jtr->tr", cc, V)[None]
+                           - cb[..., None] * Vb)
+            etaV = etaV - (torch.einsum("jt,jtr->tr", ddc, U)[None]
+                           - db[..., None] * Ub)
     eta = torch.cat([eta_a[..., None], eta_b[..., None], etaU, etaV], -1)
     return P, eta
 
 
+def _block_mask_contract(mask, num_blocks: int, bs: int):
+    """:func:`make_block_mask_contract` for a block step, or None without
+    a mask; a :class:`PackedMask` must be packed with ``num_blocks``."""
+    if mask is None:
+        return None
+    if isinstance(mask, PackedMask) and mask.blocks.shape[0] != num_blocks:
+        raise ValueError("PackedMask block count must match num_blocks")
+    return make_block_mask_contract(mask, bs)
+
+
 def cavi_step_block(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
                     params: AMEParams, structure: str, lr: float,
-                    num_blocks: int, corrected: bool = False) -> CaviState:
+                    num_blocks: int, corrected: bool = False,
+                    mask=None) -> CaviState:
     """Block Gauss-Seidel: nodes split into ``num_blocks`` groups updated in
     sequence, each group reading the freshest global state; all (node,
-    time) factors within a group update simultaneously.
+    time) factors within a group update simultaneously.  ``mask`` as in
+    :func:`cavi_step_jacobi` (a :class:`PackedMask` packed with
+    ``num_blocks``).
 
     Works on a copy of ``state`` and updates it block by block in place.
     """
@@ -390,11 +699,13 @@ def cavi_step_block(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
     bs = n // num_blocks
     solver = _SOLVERS[structure]
     prior_P = _prior_precision(pri, T)[None]
+    contract = _block_mask_contract(mask, num_blocks, bs)
     X_mean, X_cov = state.X_mean.clone(), state.X_cov.clone()
 
     for blk in range(num_blocks):
         sl = slice(blk * bs, (blk + 1) * bs)
-        P, eta = _block_obs_terms(X_mean, obs, params.R_inv, sl, corrected)
+        P, eta = _block_obs_terms(X_mean, obs, params.R_inv, blk, bs,
+                                  corrected, contract)
         eta = eta + _prior_nat_param(pri, X_mean[sl])
         mu_new, cov_new = solver(P + prior_P, eta)
         X_mean[sl] = lr * mu_new + (1.0 - lr) * X_mean[sl]
@@ -452,14 +763,22 @@ def warm_init_state(Y: torch.Tensor, params: AMEParams, *,
     ``probe`` defaults to a standard-normal draw from ``generator`` (a CPU
     generator seeded 0 when that is None too).  The JAX function draws it
     from ``PRNGKey(0)``, so the two agree only when handed one probe.
+
+    ``obs_mask`` (n, n, T) restricts every average to observed dyads: time
+    averages divide by per-entry observed counts and row/col/grand means
+    by observed-partner counts; masked entries of ``Y`` are never read.
     """
-    if obs_mask is not None:
-        raise NotImplementedError("obs_mask is not ported yet")
     n, _, T, _ = Y.shape
     d = params.Phi.shape[0]
     r = (d - 2) // 2
-    w = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)
-    M = Y[..., 0].mean(-1) * w
+    if obs_mask is None:
+        w = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)
+        M = Y[..., 0].mean(-1) * w
+    else:
+        om, Yo = _observed(Y, obs_mask)
+        cnt_t = om.sum(-1)                                  # (n, n)
+        M = Yo[..., 0].sum(-1) / torch.clamp(cnt_t, min=1.0)
+        w = (cnt_t > 0).to(M.dtype)
     row_mean = M.sum(1) / torch.clamp(w.sum(1), min=1.0)
     col_mean = M.sum(0) / torch.clamp(w.sum(0), min=1.0)
     grand = M.sum() / torch.clamp(w.sum(), min=1.0)
@@ -523,27 +842,87 @@ class _StopRule:
         self.diverged = elbo is not None and not math.isfinite(elbo)
 
 
-def _exact_diagnostics(Y, params, pri, state, structure):
-    """(ELBO, reconstruction MSE) from the exact dyadic residuals."""
+class FitInputs(NamedTuple):
+    """The loop-invariant inputs of a fit, shared by the CAVI and smoothed
+    loops (:func:`fit_inputs`)."""
+
+    Y: torch.Tensor           # unobserved entries zeroed (never read)
+    obs: ObsConstants
+    dc: Optional[DiagConstants]   # diag_mode="stats" only
+    mask: Optional[torch.Tensor]  # float (n, n, T), zero diagonal
+    mask_c: object            # what the contractions read: the mask, its
+    #                           bf16 copy or a PackedMask
+    mask_stats: object        # _mask_stats(mask), or None
+    mse_norm: object          # ordered dyad-times the MSE averages over
+
+
+def packed_mask_requested() -> bool:
+    """``TAME_PACKED_MASK=1`` routes masked contractions through K5 (opt
+    in, as in the JAX package, which measured it slower on its TPU)."""
+    return os.environ.get("TAME_PACKED_MASK") == "1"
+
+
+def fit_inputs(Y: torch.Tensor, R_inv: torch.Tensor, mask, *,
+               mixed_precision: bool, diag_mode: str, packed_mask: bool,
+               num_blocks: int) -> FitInputs:
+    """Dyad weights (bf16 under ``mixed_precision``), stats-diagnostics
+    constants and the mask in the layout the contractions read: packed
+    for K5 with ``num_blocks`` stripes when ``packed_mask``, bf16 under
+    ``mixed_precision`` (0/1 is exact in bf16), else as given.  ``Y`` is
+    zeroed at masked entries with ``where`` first, so NaN-coded hidden
+    dyads never reach the weights or the diagnostics."""
     n, _, T, _ = Y.shape
-    r = (state.X_mean.shape[-1] - 2) // 2
-    fwd = dyad_ops.dyadic_fwd_temporal(state.X_mean, r)
-    sq, cross = dyad_ops.residual_stats_from_fwd(Y, fwd)
-    quad_sum = params.R_inv[0, 0] * sq + params.R_inv[0, 1] * cross
-    elbo = _elbo_from_quad(quad_sum, params, pri, state, structure)
-    return elbo, 2.0 * sq / (n * (n - 1) * T)
+    mask_c = mask
+    if mask is not None:
+        Y = torch.where(mask[..., None] > 0, Y,
+                        torch.zeros((), dtype=Y.dtype, device=Y.device))
+        if packed_mask:
+            mask_c = PackedMask(masked_contract.pack_mask(mask, num_blocks))
+        elif mixed_precision:
+            mask_c = mask.to(torch.bfloat16)
+    return FitInputs(
+        Y=Y,
+        obs=precompute_obs_constants(
+            Y, R_inv, w_dtype=torch.bfloat16 if mixed_precision else None),
+        dc=precompute_diag_constants(Y) if diag_mode == "stats" else None,
+        mask=mask, mask_c=mask_c,
+        mask_stats=None if mask is None else _mask_stats(mask),
+        mse_norm=(n * (n - 1) * T if mask is None
+                  else torch.clamp(mask.sum(), min=1.0)))
+
+
+def residual_stats(fi: FitInputs, X_mean: torch.Tensor, R_inv: torch.Tensor,
+                   diag_mode: str):
+    """``(sq, cross)`` dyadic residual statistics for the diagnostics:
+    the stats expansion or the exact residual pass, dense or masked."""
+    r = (X_mean.shape[-1] - 2) // 2
+    if diag_mode == "stats" and fi.mask is not None:
+        return _masked_residual_stats(fi.dc, fi.obs, X_mean, r, R_inv,
+                                      fi.mask_c)
+    if diag_mode == "stats":
+        return _residual_stats_from_moments(fi.dc, fi.obs, X_mean, r, R_inv)
+    fwd = dyad_ops.dyadic_fwd_temporal(X_mean, r)
+    if fi.mask is None:
+        return dyad_ops.residual_stats_from_fwd(fi.Y, fwd)
+    e0 = (fi.Y[..., 0] - fwd) * fi.mask
+    return torch.sum(e0 * e0), torch.sum(e0 * e0.transpose(0, 1))
 
 
 def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
              structure: str, update_mode: str, num_blocks: Optional[int],
              max_iter: int, learning_rate: float, tolerance: float,
              patience: int, corrected: bool, elbo_every: int, buf_size: int,
-             carry_elbo=None, carry_patience: int = 0) -> FitResult:
+             carry_elbo=None, carry_patience: int = 0,
+             mixed_precision: bool = False, diag_mode: str = "exact",
+             mask=None, packed_mask: bool = False) -> FitResult:
     """The unfused fit: one step, one diagnostics pass and one host check
-    of the stopping rule per iteration."""
-    n, _, T, _ = Y.shape
-    obs = precompute_obs_constants(Y, params.R_inv)
+    of the stopping rule per iteration.  ``mask`` must already have a zero
+    diagonal (:func:`fit_cavi`)."""
+    fi = fit_inputs(Y, params.R_inv, mask, mixed_precision=mixed_precision,
+                    diag_mode=diag_mode, packed_mask=packed_mask,
+                    num_blocks=num_blocks if update_mode == "block" else 1)
     pri = precompute_priors(params)
+    p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
     lr = float(learning_rate)
     eh = np.full(buf_size, np.nan, np.float32)
     mh = np.full(buf_size, np.nan, np.float32)
@@ -552,16 +931,21 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     it = 0
     while it < max_iter and rule.running:
         if update_mode == "jacobi":
-            state = cavi_step_jacobi(state, obs, pri, params, structure, lr,
-                                     corrected)
+            state = cavi_step_jacobi(state, fi.obs, pri, params, structure,
+                                     lr, corrected, mask=fi.mask_c)
         else:
-            state = cavi_step_block(state, obs, pri, params, structure, lr,
-                                    num_blocks, corrected)
+            state = cavi_step_block(state, fi.obs, pri, params, structure,
+                                    lr, num_blocks, corrected,
+                                    mask=fi.mask_c)
         elbo = None
         if (it + 1) % elbo_every == 0 or it + 1 == max_iter:
-            elbo_t, mse_t = _exact_diagnostics(Y, params, pri, state,
-                                               structure)
-            elbo, mse = torch.stack([elbo_t, mse_t]).tolist()
+            sq, cross = residual_stats(fi, state.X_mean, params.R_inv,
+                                       diag_mode)
+            elbo_t = _elbo_from_quad(p_ * sq + q_ * cross, params, pri,
+                                     state, structure,
+                                     mask_stats=fi.mask_stats)
+            elbo, mse = torch.stack([elbo_t,
+                                     2.0 * sq / fi.mse_norm]).tolist()
             eh[it], mh[it] = elbo, mse
         rule.update(elbo)
         it += 1
@@ -576,11 +960,10 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
              structure: str = "full", update_mode: str = "jacobi",
              max_iter: int = 100, learning_rate=1.0, tolerance=1e-4,
              patience: int = 3, num_blocks=None, corrected: bool = False,
-             elbo_every: int = 1, diag_mode: str = "exact",
-             fused="auto", carry_elbo=None, carry_patience: int = 0
-             ) -> FitResult:
-    """Run damped CAVI to convergence (the JAX ``fit_cavi`` contract on the
-    dense float32 path).
+             elbo_every: int = 1, mixed_precision: bool = False,
+             diag_mode: str = "exact", fused="auto", carry_elbo=None,
+             carry_patience: int = 0, mask=None) -> FitResult:
+    """Run damped CAVI to convergence (the JAX ``fit_cavi`` contract).
 
     PRECONDITION: ``Y`` follows the reciprocal layout
     ``Y[i, j, t, 1] == Y[j, i, t, 0]`` with zero diagonal.
@@ -591,16 +974,44 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     next power of two >= max(max_iter, 64).  ``elbo_every=k`` evaluates the
     diagnostics every k-th iteration (and at the last).
 
+    ``mixed_precision=True`` stores the (n, n, T) dyad weights (and the
+    mask) in bf16 and sums their products in float32
+    (:func:`_eta_contract`); everything else stays float32.
+    ``diag_mode="stats"`` computes the ELBO/MSE from sufficient statistics
+    (:func:`residual_stats`) instead of an O(n^2 T) residual pass.
+
+    ``mask`` enables missing-data fits: an (n, n, T) dyad observation mask
+    (1 = observed; symmetric — both directions of a dyad live in one
+    ``Y[i, j, t]`` entry; its diagonal is zeroed here).  Masked entries of
+    ``Y`` are never read (NaN coding is safe); the observation terms and
+    diagnostics run over observed dyads.  ``TAME_PACKED_MASK=1`` sends
+    every masked contraction through K5
+    (:mod:`tame_torch.ops.masked_contract`, its twin on the CPU).
+
     ``fused`` selects K3 (:mod:`tame_torch.ops.fused_fit`): ``"auto"`` uses
     it exactly when ``Y`` is on a CUDA device and
-    :func:`~tame_torch.ops.fused_fit.fused_fit_supported` holds; ``True``
-    forces it (its plain twin on the CPU) and raises outside the envelope;
-    ``False`` disables it.  ``carry_elbo``/``carry_patience`` seed the
-    stopping rule from a previous segment's ``last_elbo``/``pat_count``.
+    :func:`~tame_torch.ops.fused_fit.fused_fit_supported` holds (never
+    under a mask); ``True`` forces it (its plain twin on the CPU) and
+    raises outside the envelope; ``False`` disables it.
+    ``carry_elbo``/``carry_patience`` seed the stopping rule from a
+    previous segment's ``last_elbo``/``pat_count``.
     """
-    if diag_mode != "exact":
-        raise NotImplementedError(
-            f"diag_mode={diag_mode!r}: the port runs exact diagnostics only")
+    if diag_mode not in ("exact", "stats"):
+        raise ValueError(f"unknown diag_mode: {diag_mode!r}")
+    if mask is not None:
+        if update_mode not in ("jacobi", "block"):
+            raise ValueError(
+                "mask is supported with update_mode 'jacobi' or 'block'")
+        fused = False  # K3 assembles complete-network statistics
+        mask = gated_mask(mask, Y)
+    if corrected and update_mode == "seq":
+        raise ValueError(
+            "corrected=True is not supported with update_mode='seq' "
+            "(seq exists for reference-trajectory parity)")
+    if mixed_precision and update_mode == "seq":
+        raise ValueError(
+            "mixed_precision=True is not supported with update_mode='seq' "
+            "(seq exists for reference-trajectory parity)")
     if update_mode not in ("jacobi", "block"):
         raise NotImplementedError(
             f"update_mode={update_mode!r}: the port runs 'jacobi' and "
@@ -616,13 +1027,13 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     if fused not in (False, None):
         supported = fused_fit.fused_fit_supported(
             n, T, d, structure=structure, update_mode=update_mode,
-            diag_mode=diag_mode, elbo_every=elbo_every,
-            num_blocks=num_blocks)
+            diag_mode=diag_mode, mixed_precision=mixed_precision,
+            elbo_every=elbo_every, num_blocks=num_blocks)
         if fused is True and not supported:
             raise ValueError(
                 "fused=True requires update_mode 'jacobi' or 'block', "
-                "diag_mode='exact', elbo_every=1, d in "
-                "(4, 6, 8, 10, 12) and a shared-memory-sized problem")
+                "diag_mode='exact', mixed_precision=False, elbo_every=1, "
+                "d in (4, 6, 8, 10, 12) and a shared-memory-sized problem")
         if fused is True or (supported and Y.is_cuda):
             out = fused_fit.fused_fit(
                 Y, params.R_inv, params.Sigma0, params.Q, params.Phi,
@@ -637,4 +1048,7 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
                     tolerance=tolerance, patience=patience,
                     corrected=corrected, elbo_every=elbo_every,
                     buf_size=buf, carry_elbo=carry_elbo,
-                    carry_patience=carry_patience)
+                    carry_patience=carry_patience,
+                    mixed_precision=mixed_precision, diag_mode=diag_mode,
+                    mask=mask,
+                    packed_mask=mask is not None and packed_mask_requested())

@@ -1,5 +1,5 @@
 """Hyperparameter learning: variational EM for the temporal AME family,
-Gaussian dyads on the complete network (counterpart of
+Gaussian dyads, complete or masked networks (counterpart of
 :mod:`tame.inference.em`).
 
 * **E-step** — the smoothed (joint-trajectory) engine
@@ -17,8 +17,9 @@ Gaussian dyads on the complete network (counterpart of
     including the exact posterior-variance corrections.
 
 Every M-step quantity is a reduction over the E-step's posteriors, O(n T d^2)
-besides one O(n^2 T) residual pass.  ``mask`` and the non-Gaussian families
-are not ported yet and raise ``NotImplementedError``.
+besides one O(n^2 T) residual pass (and, under a mask, one mask
+contraction).  The non-Gaussian families are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from tame_torch.inference import cavi
 from tame_torch.inference.smoothed import (
     SmoothedState,
     fit_cavi_smoothed,
@@ -71,15 +73,21 @@ def _transition_moments(state: SmoothedState
     return A, B, Sxx, S00
 
 
-def _residual_moments(Y: torch.Tensor, X_mean: torch.Tensor
+def _residual_moments(Y: torch.Tensor, X_mean: torch.Tensor, mask=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plug-in dyadic residual statistics over ordered pairs ``i != j``:
-    ``(sum e^2, sum e_ij e_ji, count)``."""
+    """Plug-in dyadic residual statistics over observed ordered pairs
+    (``i != j`` without a mask): ``(sum e^2, sum e_ij e_ji, count)``.
+    Masked entries of ``Y`` are never read (``where``, not a product)."""
     n, _, T, _ = Y.shape
     r = (X_mean.shape[-1] - 2) // 2
-    sq, cross = dyad_ops.residual_stats_from_fwd(
-        Y, dyad_ops.dyadic_fwd_temporal(X_mean, r))
-    return sq, cross, Y.new_tensor(float(n * (n - 1) * T))
+    fwd = dyad_ops.dyadic_fwd_temporal(X_mean, r)
+    if mask is None:
+        sq, cross = dyad_ops.residual_stats_from_fwd(Y, fwd)
+        return sq, cross, Y.new_tensor(float(n * (n - 1) * T))
+    e0 = torch.where(mask > 0, Y[..., 0] - fwd,
+                     torch.zeros((), dtype=Y.dtype, device=Y.device))
+    return (torch.sum(e0 * e0), torch.sum(e0 * e0.transpose(0, 1)),
+            torch.sum(mask))
 
 
 def _pair_sum(Xi: torch.Tensor, Zj: torch.Tensor) -> torch.Tensor:
@@ -89,44 +97,61 @@ def _pair_sum(Xi: torch.Tensor, Zj: torch.Tensor) -> torch.Tensor:
     return torch.sum(Xi.sum(0) * Zj.sum(0)) - torch.sum(Xi * Zj)
 
 
-def _residual_moment_corrections(state: SmoothedState
+def _residual_moment_corrections(state: SmoothedState, m=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact posterior-variance corrections to the plug-in residual
-    statistics over all ordered pairs, making the R M-step the true
+    statistics over the ordered pairs of the (n, n, T) mask ``m`` (all
+    pairs ``i != j`` when None), making the R M-step the true
     ``E_q[(y - mu(X))^2]`` (see the JAX function for the algebra):
 
         var_q(mu_ij)        = J_i S_i J_i' + J_j S_j J_j'
                               + tr(S_i[UU] S_j[VV])
         cov_q(mu_ij, mu_ji) = K_i + K_j + tr(S_i[UV] S_j[UV])
 
+    Each pair sum ``sum_ij m_ij x_i . z_j`` is ``sum_i x_i . (m z)_i``:
+    one mask contraction of every partner panel at once (O(n^2 T k)
+    multiply-adds, no (n, n, T, k) intermediate), or, for the
+    off-diagonal mask, :func:`_pair_sum`.  ``m`` must be symmetric.
     Returns ``(sum var_q, sum cov_q)``."""
     mu, S = state.X_mean, state.X_cov
     n, T, d = mu.shape
     r = (d - 2) // 2
     _, _, U, V = dyad_ops.split_state(mu, r)
-    cnt = float(n - 1)
 
     def flat(M):
         return M.reshape(n, T, r * r)
 
-    A, Ar = S[..., 0, 0], S[..., 1, 1]
-    B, Br = S[..., 0, 2:2 + r], S[..., 1, 2 + r:]
-    C = flat(S[..., 2:2 + r, 2:2 + r])
-    Cr = flat(S[..., 2 + r:, 2 + r:])
-    VV = flat(V[..., :, None] * V[..., None, :])
-    UU = flat(U[..., :, None] * U[..., None, :])
-    var_sum = (cnt * torch.sum(A + Ar)
-               + 2.0 * _pair_sum(B, V) + _pair_sum(C, VV)
-               + 2.0 * _pair_sum(Br, U) + _pair_sum(Cr, UU)
-               + _pair_sum(C, Cr))
-
     SUV = S[..., 2:2 + r, 2 + r:]
-    VU = flat(V[..., :, None] * U[..., None, :])
-    cross_sum = (2.0 * (cnt * torch.sum(S[..., 0, 1])
-                        + _pair_sum(S[..., 0, 2 + r:], U)
-                        + _pair_sum(S[..., 2:2 + r, 1], V)
-                        + _pair_sum(flat(SUV), VU))
-                 + _pair_sum(flat(SUV), flat(SUV.transpose(-1, -2))))
+    partners = {"V": V, "U": U,
+                "VV": flat(V[..., :, None] * V[..., None, :]),
+                "UU": flat(U[..., :, None] * U[..., None, :]),
+                "Cr": flat(S[..., 2 + r:, 2 + r:]),
+                "VU": flat(V[..., :, None] * U[..., None, :]),
+                "SUVt": flat(SUV.transpose(-1, -2))}
+    if m is None:
+        cnt = float(n - 1)
+
+        def pair(Xi, key):
+            return _pair_sum(Xi, partners[key])
+    else:
+        cnt = m.sum(1)                       # m symmetric: col sums = cnt
+        Mz = dict(zip(partners, cavi._mask_contract(
+            m, torch.cat(list(partners.values()), -1)).split(
+                [z.shape[-1] for z in partners.values()], -1)))
+
+        def pair(Xi, key):
+            return torch.sum(Xi * Mz[key])
+
+    C = flat(S[..., 2:2 + r, 2:2 + r])
+    var_sum = (torch.sum(cnt * (S[..., 0, 0] + S[..., 1, 1]))
+               + 2.0 * pair(S[..., 0, 2:2 + r], "V") + pair(C, "VV")
+               + 2.0 * pair(S[..., 1, 2 + r:], "U")
+               + pair(partners["Cr"], "UU") + pair(C, "Cr"))
+    cross_sum = (2.0 * (torch.sum(cnt * S[..., 0, 1])
+                        + pair(S[..., 0, 2 + r:], "U")
+                        + pair(S[..., 2:2 + r, 1], "V")
+                        + pair(flat(SUV), "VU"))
+                 + pair(flat(SUV), "SUVt"))
     return var_sum, cross_sum
 
 
@@ -151,6 +176,8 @@ def em_update_params(params: AMEParams, Y: torch.Tensor,
                      r_structure: str = "exchangeable") -> AMEParams:
     """One closed-form M-step; fields not in ``learn`` keep their values
     and ``Sigma``/``Psi`` report the blocks of the learned ``Sigma0``.
+    ``mask`` ((n, n, T), symmetric) restricts the R statistics to
+    observed dyads.
 
     The group rates of ``phi_structure`` solve, under the current Q,
 
@@ -167,8 +194,6 @@ def em_update_params(params: AMEParams, Y: torch.Tensor,
     if r_structure not in ("exchangeable", "diag"):
         raise ValueError(f"unknown r_structure {r_structure!r}; choose "
                          "from 'exchangeable', 'diag'")
-    if mask is not None:
-        raise NotImplementedError("mask is not ported yet")
     n, T, d = state.X_mean.shape
     A, B, Sxx, S00 = _transition_moments(state)
 
@@ -191,8 +216,8 @@ def em_update_params(params: AMEParams, Y: torch.Tensor,
         Sigma0 = _sym(S00 / n, 1e-6)
     R, R_inv = params.R, params.R_inv
     if "R" in learn:
-        sq, cross, count = _residual_moments(Y, state.X_mean)
-        var_corr, cross_corr = _residual_moment_corrections(state)
+        sq, cross, count = _residual_moments(Y, state.X_mean, mask)
+        var_corr, cross_corr = _residual_moment_corrections(state, mask)
         sigma2 = torch.clamp((sq + var_corr) / count, min=1e-8)
         if r_structure == "diag":
             rho = torch.zeros_like(sigma2)
@@ -236,6 +261,10 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
     halved and that EM iteration retried (up to 3 times); if every retry
     diverges, EM stops with the last finite iterate.
 
+    ``mask`` ((n, n, T), symmetric; its diagonal is zeroed) fits the
+    observed dyads only, in the warm init, the E-steps and the M-step;
+    ``mixed_precision``/``diag_mode`` go to the E-steps.
+
     Returns :class:`EMResult`; ``history`` tracks ``elbo`` (final inner
     ELBO per EM iteration) and the learned scalars (``phi_mult``, the last
     latent dimension's rate, for non-scalar ``phi_structure``).
@@ -251,14 +280,14 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
     if family != "gaussian":
         raise NotImplementedError(
             f"family {family!r}: only the Gaussian E-step is ported yet")
-    if mask is not None:
-        raise NotImplementedError("mask is not ported yet")
     n, _, T, _ = Y.shape
+    if mask is not None:
+        mask = cavi.gated_mask(mask, Y)
     params = params0
     if init is not None:
         state = init
     elif init_mode == "warm":
-        state = warm_init_smoothed_state(Y, params0)
+        state = warm_init_smoothed_state(Y, params0, obs_mask=mask)
     else:
         state = init_smoothed_state(torch.Generator().manual_seed(seed), n,
                                     T, params0.d, 0.1, device=Y.device)
@@ -290,7 +319,7 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
                                     tolerance=inner_tolerance,
                                     corrected=True,
                                     mixed_precision=mixed_precision,
-                                    diag_mode=diag_mode)
+                                    diag_mode=diag_mode, mask=mask)
             e = float(out.elbo_history[out.n_iter - 1])
             # Relative regression threshold: near convergence the ELBO
             # moves at reduction-noise scale, which must not back off.
@@ -315,7 +344,7 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
             break
         prev_elbo = e
         state = out.state
-        params = em_update_params(params, Y, state, learn=learn,
+        params = em_update_params(params, Y, state, learn=learn, mask=mask,
                                   phi_structure=phi_structure,
                                   r_structure=r_structure)
         cur = scalars(params)

@@ -25,9 +25,11 @@ class TemporalAMECaviVI(torch.nn.Module):
     good-SMF / bad-SMF); ``update_mode`` ``"block"`` (block Gauss-Seidel,
     default) or ``"jacobi"``; ``init_mode`` ``"random"`` or ``"warm"``
     (:func:`~tame_torch.inference.cavi.warm_init_state`, its subspace probe
-    drawn from a generator seeded ``seed``).  ``mixed_precision``,
-    ``diag_mode="stats"``, ``update_mode="seq"`` and ``mask`` keep the JAX
-    engine's keywords but are not ported yet and raise.
+    drawn from a generator seeded ``seed``).  ``mask`` ((n, n, T) dyad
+    observation mask, see :func:`~tame_torch.inference.cavi.fit_cavi`),
+    ``mixed_precision`` and ``diag_mode="stats"`` go to every fit; the
+    warm init then averages over observed dyads.  ``update_mode="seq"``
+    keeps the JAX engine's keyword but is not ported yet and raises.
     """
 
     structure = "full"
@@ -43,13 +45,8 @@ class TemporalAMECaviVI(torch.nn.Module):
         if model.Y is None:
             raise ValueError(
                 "Model has no data. Call model.generate_data() first.")
-        unported = {"mixed_precision": mixed_precision,
-                    "diag_mode='stats'": diag_mode != "exact",
-                    "update_mode='seq'": update_mode == "seq",
-                    "mask": mask is not None}
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if update_mode == "seq":
+            raise NotImplementedError("update_mode='seq' is not ported yet")
         if structure is not None:
             self.structure = structure
         self.model = model
@@ -62,8 +59,11 @@ class TemporalAMECaviVI(torch.nn.Module):
         self.update_mode = update_mode
         self.num_blocks = num_blocks
         self.corrected = corrected
+        self.mixed_precision = mixed_precision
         self.diag_mode = diag_mode
         self.elbo_every = elbo_every
+        self.mask = (None if mask is None else torch.as_tensor(
+            mask, dtype=self.Y.dtype, device=self.Y.device))
         self.params = model.params.to(self.Y.device, self.Y.dtype)
         self.history: Dict[str, List[float]] = {
             "elbo": [], "reconstruction_error": []}
@@ -73,7 +73,8 @@ class TemporalAMECaviVI(torch.nn.Module):
             state = cavi.warm_init_state(
                 self.Y, self.params, structure=self.structure,
                 cov_init_scale=cov_init_scale,
-                generator=torch.Generator().manual_seed(seed))
+                generator=torch.Generator().manual_seed(seed),
+                obs_mask=self.mask)
         elif init_mode == "random":
             state = cavi.init_state(
                 torch.Generator().manual_seed(seed), self.n, self.T, self.d,
@@ -119,7 +120,8 @@ class TemporalAMECaviVI(torch.nn.Module):
             structure=self.structure, update_mode=self.update_mode,
             max_iter=max_iter, learning_rate=self.lr, tolerance=tolerance,
             num_blocks=self.num_blocks, corrected=self.corrected,
-            diag_mode=self.diag_mode, elbo_every=self.elbo_every)
+            mixed_precision=self.mixed_precision, diag_mode=self.diag_mode,
+            elbo_every=self.elbo_every, mask=self.mask)
         self.X_mean = result.X_mean
         self.X_cov = result.X_cov
         n_iter = result.n_iter

@@ -36,12 +36,18 @@ _LOG2PI = 1.8378770664093453
 def exact_elbo(Y: torch.Tensor, params: AMEParams, state: SmoothedState,
                mask=None) -> torch.Tensor:
     """The exact evidence lower bound of a smoothed variational state
-    (Gaussian dyads, complete network; ``mask`` is not ported yet)."""
-    if mask is not None:
-        raise NotImplementedError("mask is not ported yet")
+    (Gaussian dyads).  ``mask``: an (n, n, T) observation gate; the bound
+    is then on the observed-dyad evidence.
+
+    The mask's diagonal is zeroed before the plug-in statistics, so they
+    and the variance corrections sum over the same pairs.  (The JAX
+    function zeroes it for the corrections only; the two agree on every
+    zero-diagonal mask.)"""
     pri = cavi.precompute_priors(params)
-    sq, cross, count = _residual_moments(Y, state.X_mean)
-    var_corr, cross_corr = _residual_moment_corrections(state)
+    if mask is not None:
+        mask = cavi.gated_mask(mask, Y)
+    sq, cross, count = _residual_moments(Y, state.X_mean, mask)
+    var_corr, cross_corr = _residual_moment_corrections(state, mask)
     p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
     quad = p_ * (sq + var_corr) + q_ * (cross + cross_corr)
     log_lik = -0.5 * (quad + 0.5 * count * (pri.logdet_R + 2.0 * _LOG2PI))

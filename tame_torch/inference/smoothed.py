@@ -19,7 +19,9 @@ cross-covariances and the entropy the trajectory log-determinants.
 Damping applies to the means only; covariances come fresh from each solve.
 
 :func:`fit_cavi_smoothed` is a Python loop with one host read of the ELBO
-per iteration and the JAX loop's stopping rule (``cavi._StopRule``).
+per iteration and the JAX loop's stopping rule (``cavi._StopRule``).  Masks,
+bf16 weights and stats diagnostics share the CAVI engine's inputs and
+diagnostics (``cavi.fit_inputs``, ``cavi.residual_stats``).
 """
 
 from __future__ import annotations
@@ -108,16 +110,24 @@ def warm_init_smoothed_state(Y: torch.Tensor, params: AMEParams,
 
 def smoothed_step(state: SmoothedState, obs: cavi.ObsConstants,
                   pri: cavi.PriorMatrices, params: AMEParams, lr: float,
-                  corrected: bool = True) -> SmoothedState:
+                  corrected: bool = True, mask=None) -> SmoothedState:
     """One simultaneous update: every node's trajectory re-solved exactly
     against the other nodes' current means, in one
-    :func:`fused_smoother` call."""
+    :func:`fused_smoother` call.  ``mask`` (missing-data fits) as in
+    ``cavi.cavi_step_jacobi``.
+
+    Under a mask the JAX package leaves its Pallas smoother for the scan;
+    the port sends every smooth through :func:`fused_smoother` (K4 on the
+    card) all the same: the smoother solves whatever D and b it is given,
+    so the result is the same."""
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
     _, _, U, V = dyad_ops.split_state(state.X_mean, r)
-    D = (cavi._obs_precision(U, V, params.R_inv)
-         + cavi._prior_precision(pri, T)[None])
-    b = cavi._obs_nat_param(obs, state.X_mean, r, params.R_inv, corrected)
+    D_obs = (cavi._obs_precision(U, V, params.R_inv) if mask is None
+             else cavi._masked_obs_precision(mask, U, V, params.R_inv))
+    D = D_obs + cavi._prior_precision(pri, T)[None]
+    b = cavi._obs_nat_param(obs, state.X_mean, r, params.R_inv, corrected,
+                            mask=mask)
     out = fused_smoother(D, -pri.Qinv_Phi.T, b)
     return SmoothedState(X_mean=lr * out.mean + (1.0 - lr) * state.X_mean,
                          X_cov=out.cov, X_cross=out.cross_cov,
@@ -127,27 +137,29 @@ def smoothed_step(state: SmoothedState, obs: cavi.ObsConstants,
 def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
                         pri: cavi.PriorMatrices, params: AMEParams,
                         lr: float, num_blocks: int,
-                        corrected: bool = True) -> SmoothedState:
+                        corrected: bool = True, mask=None) -> SmoothedState:
     """Block Gauss-Seidel smoothed update: node blocks re-solved in
     sequence, each block's trajectories solved exactly against the
-    freshest other-node means (fresh global statistics per phase, as
-    ``cavi.cavi_step_block``; no neighbour-mean prior coupling, time is
-    handled exactly), one :func:`fused_smoother` call per block.  Works
-    on a copy of ``state``, updated in place."""
+    freshest other-node means (fresh statistics per phase, as
+    ``cavi.cavi_step_block``, masked partner sums under ``mask``; no
+    neighbour-mean prior coupling, time is handled exactly), one
+    :func:`fused_smoother` call per block.  Works on a copy of ``state``,
+    updated in place."""
     n, T, d = state.X_mean.shape
     if n % num_blocks != 0:
         raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
     bs = n // num_blocks
     prior_D = cavi._prior_precision(pri, T)[None]
     O = -pri.Qinv_Phi.T
+    contract = cavi._block_mask_contract(mask, num_blocks, bs)
     X_mean = state.X_mean.clone()
     X_cov, X_cross = state.X_cov.clone(), state.X_cross.clone()
     logdets = state.logdets.clone()
 
     for blk in range(num_blocks):
         sl = slice(blk * bs, (blk + 1) * bs)
-        D_obs, bvec = cavi._block_obs_terms(X_mean, obs, params.R_inv, sl,
-                                            corrected)
+        D_obs, bvec = cavi._block_obs_terms(X_mean, obs, params.R_inv, blk,
+                                            bs, corrected, contract)
         out = fused_smoother(D_obs + prior_D, O, bvec)
         X_mean[sl] = lr * out.mean + (1.0 - lr) * X_mean[sl]
         X_cov[sl] = out.cov
@@ -167,31 +179,42 @@ def smoothed_elbo(Y: torch.Tensor, params: AMEParams,
                   obs_mask=None) -> torch.Tensor:
     """ELBO with exact cross-time transition terms and trajectory entropy;
     the likelihood uses the structured engines' plug-in + trace-correction
-    convention, so values are comparable to Good SMF."""
-    if obs_mask is not None:
-        raise NotImplementedError("obs_mask is not ported yet")
+    convention, so values are comparable to Good SMF.  Under ``obs_mask``
+    it runs over observed dyads (NaN-coded hidden entries are never
+    read)."""
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
+    if obs_mask is None:
+        mask = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)[:, :, None]
+        mask_stats = None
+    else:
+        mask, Y = cavi._observed(Y, obs_mask)
+        mask_stats = cavi._mask_stats(mask)
     if mu_dyadic is None:
         mu_dyadic = dyad_ops.dyadic_mean_temporal(state.X_mean, r)
     resid = Y - mu_dyadic
     p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
     e0, e1 = resid[..., 0], resid[..., 1]
     quad = p_ * (e0 * e0 + e1 * e1) + 2.0 * q_ * (e0 * e1)
-    mask = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)[:, :, None]
     quad_sum = 0.5 * torch.sum(quad * mask)
-    return smoothed_elbo_from_quad(quad_sum, params, pri, state)
+    return smoothed_elbo_from_quad(quad_sum, params, pri, state,
+                                   mask_stats=mask_stats)
 
 
 def smoothed_elbo_from_quad(quad_sum: torch.Tensor, params: AMEParams,
-                            pri: cavi.PriorMatrices,
-                            state: SmoothedState) -> torch.Tensor:
+                            pri: cavi.PriorMatrices, state: SmoothedState,
+                            mask_stats=None) -> torch.Tensor:
     """Smoothed ELBO given ``sum_{i<j,t} resid' R^-1 resid``; every other
-    term depends only on the variational state."""
+    term depends only on the variational state.  ``mask_stats`` as in
+    ``cavi._elbo_from_quad``."""
     n, T, d = state.X_mean.shape
     tr_cov = torch.diagonal(state.X_cov, dim1=-2, dim2=-1).sum(-1)
-    n_dyads = n * (n - 1) // 2 * T
-    wsum = (n - 1) * torch.sum(tr_cov)
+    if mask_stats is None:
+        n_dyads = n * (n - 1) // 2 * T
+        wsum = (n - 1) * torch.sum(tr_cov)
+    else:
+        n_dyads = mask_stats[0]
+        wsum = torch.sum(mask_stats[1] * tr_cov)
     log_lik = -0.5 * (quad_sum + n_dyads * (pri.logdet_R + 2.0 * _LOG2PI))
     corr = 0.1 * torch.trace(params.R_inv) / d * wsum
     log_lik = log_lik - 0.5 * corr
@@ -235,17 +258,6 @@ def smoothed_prior_entropy(params: AMEParams, pri: cavi.PriorMatrices,
 # Full fit
 # ---------------------------------------------------------------------------
 
-def _exact_diagnostics(Y, params, pri, state):
-    """(ELBO, reconstruction MSE) from the exact dyadic residuals."""
-    n, _, T, _ = Y.shape
-    r = (state.X_mean.shape[-1] - 2) // 2
-    fwd = dyad_ops.dyadic_fwd_temporal(state.X_mean, r)
-    sq, cross = dyad_ops.residual_stats_from_fwd(Y, fwd)
-    quad_sum = params.R_inv[0, 0] * sq + params.R_inv[0, 1] * cross
-    elbo = smoothed_elbo_from_quad(quad_sum, params, pri, state)
-    return elbo, 2.0 * sq / (n * (n - 1) * T)
-
-
 def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
                       init: SmoothedState, *, max_iter: int = 100,
                       learning_rate=0.8, tolerance=1e-4, patience: int = 3,
@@ -256,7 +268,7 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
                       carry_patience: int = 0,
                       mask=None) -> SmoothedFitResult:
     """Run smoothed CAVI to convergence (the JAX ``fit_cavi_smoothed``
-    contract on the dense float32 path).
+    contract).
 
     Every smooth goes through
     :func:`~tame_torch.ops.fused_smoother.fused_smoother`: K4 on a CUDA
@@ -274,8 +286,13 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     two >= max(max_iter, 64).  ``carry_elbo``/``carry_patience`` seed the
     stopping rule from a previous segment's ``last_elbo``/``pat_count``.
 
-    Not ported yet (raise ``NotImplementedError``): ``mask``,
-    ``mixed_precision``, ``diag_mode="stats"``, ``smoother="parallel"``.
+    ``mask``, ``mixed_precision`` and ``diag_mode`` as in
+    ``cavi.fit_cavi``: the mask's diagonal is zeroed, masked entries of
+    ``Y`` are never read, and ``TAME_PACKED_MASK=1`` sends the masked
+    contractions through K5, packed with the block count.  Under a mask
+    the JAX function leaves its Pallas smoother; this one does not (see
+    :func:`smoothed_step`).  Not ported yet (raises
+    ``NotImplementedError``): ``smoother="parallel"``.
     """
     if diag_mode not in ("exact", "stats"):
         raise ValueError(f"unknown diag_mode: {diag_mode!r}")
@@ -288,13 +305,8 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     if smoother == "parallel" and fused is True:
         raise ValueError("fused=True and smoother='parallel' are mutually "
                          "exclusive solver choices; drop one")
-    unported = {"mask": mask is not None,
-                "mixed_precision": mixed_precision,
-                "diag_mode='stats'": diag_mode == "stats",
-                "smoother='parallel'": smoother == "parallel"}
-    for name, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if smoother == "parallel":
+        raise NotImplementedError("smoother='parallel' is not ported yet")
     buf = 64
     while buf < max_iter:
         buf *= 2
@@ -307,9 +319,15 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
         update_mode = "block" if n >= 256 else "jacobi"
     if update_mode == "block" and num_blocks is None:
         num_blocks = next(k for k in range(min(16, n), 0, -1) if n % k == 0)
-
-    obs = cavi.precompute_obs_constants(Y, params.R_inv)
+    if mask is not None:
+        mask = cavi.gated_mask(mask, Y)
+    fi = cavi.fit_inputs(
+        Y, params.R_inv, mask, mixed_precision=mixed_precision,
+        diag_mode=diag_mode,
+        packed_mask=mask is not None and cavi.packed_mask_requested(),
+        num_blocks=num_blocks if update_mode == "block" else 1)
     pri = cavi.precompute_priors(params)
+    p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
     lr = float(learning_rate)
     eh = np.full(buf, np.nan, np.float32)
     mh = np.full(buf, np.nan, np.float32)
@@ -318,12 +336,17 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     it = 0
     while it < max_iter and rule.running:
         if update_mode == "block":
-            state = smoothed_step_block(state, obs, pri, params, lr,
-                                        num_blocks, corrected)
+            state = smoothed_step_block(state, fi.obs, pri, params, lr,
+                                        num_blocks, corrected,
+                                        mask=fi.mask_c)
         else:
-            state = smoothed_step(state, obs, pri, params, lr, corrected)
-        elbo_t, mse_t = _exact_diagnostics(Y, params, pri, state)
-        elbo, mse = torch.stack([elbo_t, mse_t]).tolist()
+            state = smoothed_step(state, fi.obs, pri, params, lr, corrected,
+                                  mask=fi.mask_c)
+        sq, cross = cavi.residual_stats(fi, state.X_mean, params.R_inv,
+                                        diag_mode)
+        elbo_t = smoothed_elbo_from_quad(p_ * sq + q_ * cross, params, pri,
+                                         state, mask_stats=fi.mask_stats)
+        elbo, mse = torch.stack([elbo_t, 2.0 * sq / fi.mse_norm]).tolist()
         eh[it], mh[it] = elbo, mse
         rule.update(elbo)
         it += 1
@@ -347,9 +370,10 @@ class TemporalAMESmoothedVI(torch.nn.Module):
     ``init_mode="warm"`` starts from
     :func:`warm_init_smoothed_state` (subspace probe from a CPU generator
     seeded 0, as the JAX engine uses ``PRNGKey(0)``); ``"random"`` from
-    :func:`init_smoothed_state` seeded ``seed``.  ``mixed_precision``,
-    ``diag_mode="stats"``, ``mask`` and checkpointed fits keep the JAX
-    engine's keywords but are not ported yet and raise.
+    :func:`init_smoothed_state` seeded ``seed``.  ``mask``,
+    ``mixed_precision`` and ``diag_mode`` go to every fit (and ``mask`` to
+    the warm init).  Checkpointed fits keep the JAX engine's keywords but
+    are not ported yet and raise.
     """
 
     structure = "smoothed"
@@ -364,12 +388,6 @@ class TemporalAMESmoothedVI(torch.nn.Module):
         if model.Y is None:
             raise ValueError(
                 "Model has no data. Call model.generate_data() first.")
-        unported = {"mixed_precision": mixed_precision,
-                    "diag_mode='stats'": diag_mode == "stats",
-                    "mask": mask is not None}
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(f"{name} is not ported yet")
         self.model = model
         self.Y = torch.as_tensor(model.Y)
         self.n, self.T, self.d, self.r = model.n, model.T, model.d, model.r
@@ -378,12 +396,16 @@ class TemporalAMESmoothedVI(torch.nn.Module):
         self.corrected = corrected
         self.update_mode = update_mode
         self.num_blocks = num_blocks
+        self.mixed_precision = mixed_precision
         self.diag_mode = diag_mode
+        self.mask = (None if mask is None else torch.as_tensor(
+            mask, dtype=self.Y.dtype, device=self.Y.device))
         self.params = model.params.to(self.Y.device, self.Y.dtype)
         self.history = {"elbo": [], "reconstruction_error": []}
         self._converged = self._diverged = False
         if init_mode == "warm":
-            st = warm_init_smoothed_state(self.Y, self.params)
+            st = warm_init_smoothed_state(self.Y, self.params,
+                                          obs_mask=self.mask)
         elif init_mode == "random":
             st = init_smoothed_state(torch.Generator().manual_seed(seed),
                                      self.n, self.T, self.d, init_scale,
@@ -410,7 +432,8 @@ class TemporalAMESmoothedVI(torch.nn.Module):
             self.Y, self.params, self._state(), max_iter=max_iter,
             learning_rate=self.lr, tolerance=tolerance,
             corrected=self.corrected, update_mode=self.update_mode,
-            num_blocks=self.num_blocks, diag_mode=self.diag_mode)
+            num_blocks=self.num_blocks, mixed_precision=self.mixed_precision,
+            diag_mode=self.diag_mode, mask=self.mask)
         for name, value in result.state._asdict().items():
             setattr(self, name, value)
         n_iter = result.n_iter

@@ -10,6 +10,7 @@ from tame_torch.models.params import (
 )
 from tame_torch.models.temporal_ame import (
     TemporalAMEModel,
+    random_dyad_mask,
     sample,
     sample_latents,
     sample_observations,
@@ -23,6 +24,7 @@ __all__ = [
     "block_diagonal",
     "correlation_matrix",
     "params_from_numpy",
+    "random_dyad_mask",
     "sample",
     "sample_latents",
     "sample_observations",

@@ -6,7 +6,9 @@
 
 Randomness comes from an explicit ``torch.Generator``; sampling runs on
 the generator's device.  The JAX and torch streams differ, so the two
-packages draw different data from the same seed.
+packages draw different data from the same seed.  The model's own
+generator lives on the card by default (``device="cuda"``); pass
+``device="cpu"`` to sample on the CPU.
 """
 
 from __future__ import annotations
@@ -62,9 +64,28 @@ def sample(params: AMEParams, generator: torch.Generator, n: int,
     return Y, X
 
 
+def random_dyad_mask(generator: torch.Generator, n: int, T: int,
+                     missing_frac: float) -> torch.Tensor:
+    """Random missing-at-random dyad observation mask, drawn on the
+    generator's device.
+
+    Each unordered dyad (i, j) at each time t is observed with probability
+    ``1 - missing_frac``; the mask is symmetric (both directions of a dyad
+    live in one ``Y[i, j, t]`` entry and are observed together) with zero
+    diagonal.  Returns a float32 ``(n, n, T)`` tensor of {0, 1}.
+    """
+    dev = generator.device
+    u = torch.rand(n, n, T, generator=generator, device=dev)
+    upper = torch.triu(torch.ones(n, n, device=dev), diagonal=1)[:, :, None]
+    keep = (u > missing_frac).float() * upper
+    return keep + keep.transpose(0, 1)
+
+
 class TemporalAMEModel(BaseAMEModel):
-    """Temporal AME model with AR(1) dynamics: same constructor keywords
-    and attributes as :class:`tame.models.TemporalAMEModel`."""
+    """Temporal AME model with AR(1) dynamics: the constructor keywords and
+    attributes of :class:`tame.models.TemporalAMEModel`, plus ``device``,
+    where the model's generator (and so its data) lives.  ``"cuda"``, the
+    default, raises without a CUDA device."""
 
     def __init__(
         self,
@@ -77,7 +98,13 @@ class TemporalAMEModel(BaseAMEModel):
         rho_dyadic: float = 0.5,
         process_noise_scale: float = 0.1,
         seed: int = 42,
+        device="cuda",
     ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TemporalAMEModel(device='cuda') needs a CUDA device; pass "
+                "device='cpu' to sample on the CPU")
         self.config = ModelConfig(
             n_nodes=n_nodes,
             n_time=n_time,
@@ -100,7 +127,8 @@ class TemporalAMEModel(BaseAMEModel):
         self.rho_multiplicative = rho_multiplicative
         self.rho_dyadic = rho_dyadic
         self.seed = seed
-        self._generator = torch.Generator().manual_seed(seed)
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            seed)
 
         self.X: Optional[torch.Tensor] = None
         self.Y: Optional[torch.Tensor] = None
@@ -134,10 +162,10 @@ class TemporalAMEModel(BaseAMEModel):
                       device=None):
         """Generate (and store) a synthetic dataset.
 
-        Samples with ``generator`` (default: the model's own CPU generator
-        seeded from ``seed``, so consecutive calls give fresh data) on that
-        generator's device, then moves the result to ``device`` (default:
-        the generator's device).
+        Samples with ``generator`` (default: the model's own generator,
+        seeded from ``seed`` on the model's device, so consecutive calls
+        give fresh data) on that generator's device, then moves the result
+        to ``device`` (default: the generator's device).
         """
         gen = self._generator if generator is None else generator
         Y, X = sample(self.params, gen, self.n, self.T)

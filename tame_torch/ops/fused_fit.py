@@ -12,7 +12,8 @@ phase, phases in sequence); running many fits across SMs is later work.
 
 Scope (checked by :func:`fused_fit_supported`): structures ``diag``,
 ``full``, ``block``; ``jacobi`` or ``block`` updates; exact diagnostics
-every iteration; float32; d in {4, 6, 8, 10, 12}; and the fit's shared
+every iteration; float32 weights (no ``mixed_precision``); no mask; d in
+{4, 6, 8, 10, 12}; and the fit's shared
 memory (:func:`fused_fit_smem_bytes`) within the 227 KB a Hopper block may
 use.  At d=6 the state alone is (d + d^2) n T 4 B: 25 KB at n=15, T=10
 (inside) and 168 KB at n=100, T=10 (inside with 10 blocks, outside as one
@@ -52,11 +53,12 @@ def fused_fit_smem_bytes(n: int, T: int, d: int, num_blocks: int) -> int:
 
 def fused_fit_supported(n: int, T: int, d: int, *, structure: str,
                         update_mode: str, diag_mode: str, elbo_every: int,
-                        num_blocks: Optional[int] = None) -> bool:
+                        num_blocks: Optional[int] = None,
+                        mixed_precision: bool = False) -> bool:
     """Whether K3 covers this fit configuration and size."""
     if (structure not in _STRUCTURE_CODES
             or update_mode not in ("jacobi", "block")
-            or diag_mode != "exact" or elbo_every != 1
+            or diag_mode != "exact" or elbo_every != 1 or mixed_precision
             or d not in KERNEL_DIMS):
         return False
     if update_mode == "jacobi":

@@ -286,12 +286,22 @@ class TestFitParity:
     def test_unported_modes_raise(self):
         Y, jp, Xm, Xc = _problem(n=4, T=2, seed=7)
         _, _, _, tY, tp, ts = _both(Y, jp, Xm, Xc)
-        with pytest.raises(NotImplementedError):
-            tcavi.fit_cavi(tY, tp, ts, diag_mode="stats")
+        # the production flags and a mask run
+        for kw in [dict(diag_mode="stats"), dict(mixed_precision=True),
+                   dict(mask=torch.ones(4, 4, 2))]:
+            res = tcavi.fit_cavi(tY, tp, ts, max_iter=2, **kw)
+            assert torch.isfinite(res.elbo_history[:2]).all()
         with pytest.raises(NotImplementedError):
             tcavi.fit_cavi(tY, tp, ts, update_mode="seq")
         with pytest.raises(ValueError, match="fused=True requires"):
             tcavi.fit_cavi(tY, tp, ts, elbo_every=2, fused=True)
+        with pytest.raises(ValueError, match="fused=True requires"):
+            tcavi.fit_cavi(tY, tp, ts, mixed_precision=True, fused=True)
+        with pytest.raises(ValueError, match="diag_mode"):
+            tcavi.fit_cavi(tY, tp, ts, diag_mode="bogus")
+        with pytest.raises(ValueError, match="mask is supported"):
+            tcavi.fit_cavi(tY, tp, ts, update_mode="seq",
+                           mask=torch.ones(4, 4, 2))
 
 
 class TestInitState:

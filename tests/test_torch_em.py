@@ -93,8 +93,6 @@ def test_partial_learn_and_validation(problem):
     with pytest.raises(ValueError, match="r_structure"):
         tem.em_update_params(tp, tY, ts, r_structure="bogus")
     with pytest.raises(NotImplementedError):
-        tem.em_update_params(tp, tY, ts, mask=torch.ones(8, 8, 5))
-    with pytest.raises(NotImplementedError):
         fit_em(tY, tp, family="bernoulli")
     with pytest.raises(ValueError, match="unknown family"):
         fit_em(tY, tp, family="bogus")

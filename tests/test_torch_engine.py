@@ -39,16 +39,30 @@ def demo_pattern(mse):
 
 class TestModel:
     def test_reciprocal_layout_and_shapes(self):
-        model = TemporalAMEModel(n_nodes=7, n_time=4, latent_dim=2, seed=3)
+        model = TemporalAMEModel(n_nodes=7, n_time=4, latent_dim=2, seed=3,
+                                 device="cpu")
         Y, X = model.generate_data(return_latents=True)
         assert Y.shape == (7, 7, 4, 2) and X.shape == (7, 4, 6)
         assert torch.equal(Y[..., 1], Y[..., 0].transpose(0, 1))
         assert (Y[torch.arange(7), torch.arange(7)] == 0).all()
         assert model.Y is Y and model.X is X
 
+    def test_defaults_to_the_card(self):
+        """The model's generator and data live on the card unless the
+        caller asks for the CPU; without a card that default raises."""
+        if torch.cuda.is_available():
+            model = TemporalAMEModel(n_nodes=4, n_time=2)
+            assert model.generate_data().is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                TemporalAMEModel(n_nodes=4, n_time=2)
+        cpu = TemporalAMEModel(n_nodes=4, n_time=2, device="cpu")
+        assert cpu.generate_data().device.type == "cpu"
+
     def test_seeded_and_fresh_draws(self):
-        a = TemporalAMEModel(n_nodes=5, n_time=3, seed=11).generate_data()
-        m = TemporalAMEModel(n_nodes=5, n_time=3, seed=11)
+        a = TemporalAMEModel(n_nodes=5, n_time=3, seed=11,
+                             device="cpu").generate_data()
+        m = TemporalAMEModel(n_nodes=5, n_time=3, seed=11, device="cpu")
         assert torch.equal(m.generate_data(), a)
         assert not torch.equal(m.generate_data(), a)  # generator advanced
         g = torch.Generator().manual_seed(11)
@@ -58,7 +72,7 @@ class TestModel:
         """Residuals around the true mean have the model's dyadic variance
         (0.1): a distributional check, as the random streams differ from
         the JAX package's."""
-        model = TemporalAMEModel(n_nodes=30, n_time=5, seed=0)
+        model = TemporalAMEModel(n_nodes=30, n_time=5, seed=0, device="cpu")
         Y, X = model.generate_data(return_latents=True)
         mse = model.compute_temporal_reconstruction_error(X)
         assert abs(mse - 0.2) < 0.02  # per-dyad (2 entries) normalization
@@ -68,7 +82,7 @@ class TestEngines:
     @pytest.fixture(scope="class")
     def demo_model(self):
         model = TemporalAMEModel(n_nodes=15, n_time=10, latent_dim=2,
-                                 seed=42)
+                                 seed=42, device="cpu")
         model.generate_data(generator=torch.Generator().manual_seed(42))
         return model
 
@@ -113,9 +127,10 @@ class TestEngines:
         with pytest.raises(ValueError):
             TemporalAMEStructuredMFVI(demo_model, factorization="ugly")
         with pytest.raises(NotImplementedError):
-            TemporalAMENaiveMFVI(demo_model, mixed_precision=True)
+            TemporalAMENaiveMFVI(demo_model, update_mode="seq")
         with pytest.raises(ValueError):
-            TemporalAMENaiveMFVI(TemporalAMEModel(n_nodes=4, n_time=2))
+            TemporalAMENaiveMFVI(TemporalAMEModel(n_nodes=4, n_time=2,
+                                                  device="cpu"))
 
     def test_naive_keeps_diagonal_and_bad_keeps_zero_cross_blocks(
             self, demo_model):

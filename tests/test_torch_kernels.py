@@ -14,10 +14,13 @@ import torch
 from tame_torch.config import ModelConfig
 from tame_torch.inference import cavi
 from tame_torch.inference import smoothed
-from tame_torch.models import TemporalAMEModel, build_params
+from tame_torch.models import (TemporalAMEModel, build_params,
+                               random_dyad_mask)
 from tame_torch.ops import cholesky as tchol
+from tame_torch.ops import dual_contract as tdc
 from tame_torch.ops import fused_fit as tff
 from tame_torch.ops import fused_smoother as tfs
+from tame_torch.ops import masked_contract as tmc
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +33,13 @@ STATE_ATOL = 1e-4
 # order); logdet, a sum of T d logs each exact to f32 rounding, 1e-5.
 SMOOTHER_REL = 1e-4
 LOGDET_RTOL = 1e-5
+# K5 / K6 vs twin: the same bf16-rounded products summed in float32 in
+# another order (K6's column sums through atomics in a changing order).
+CONTRACT_REL = 1e-4
+# Packed-mask fit through K5 vs through its twin: the two sum in another
+# order, so later phases round means an f32 ulp apart to bf16; a mean on a
+# rounding boundary moves a partner sum by one bf16 step (~4e-3 of it).
+PACKED_FIT_RTOL = 1e-3
 
 
 @pytest.fixture
@@ -207,3 +217,65 @@ def test_smoothed_fit_outside_k4_envelope_raises(cuda_device):
         torch.Generator(device=cuda_device).manual_seed(0), 6, 3, 14)
     with pytest.raises(ValueError, match="built for d in"):
         smoothed.fit_cavi_smoothed(Y, p, init, max_iter=2)
+
+
+def _max_rel(got, ref):
+    assert got.shape == ref.shape
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("n,T,K,nb", [(20, 3, 5, 4), (2000, 50, 57, 16),
+                                      (300, 7, 70, 1)])
+def test_masked_contract_matches_twin(cuda_device, n, T, K, nb):
+    g = torch.Generator(device=cuda_device).manual_seed(n + K)
+    mask = (torch.rand(n, n, T, device=cuda_device, generator=g) > 0.3)
+    mask = mask.float() * (1 - torch.eye(n, device=cuda_device))[:, :, None]
+    Z = torch.randn(n, T, K, device=cuda_device, generator=g)
+    pm = tmc.pack_mask(mask, nb)
+    before = tmc.packed_rows_contract_kernel.launches
+    for k in range(nb):
+        got = tmc.packed_rows_contract(pm[k], Z)
+        ref = tmc.packed_rows_contract_twin(pm[k], Z)
+        assert _max_rel(got, ref) <= CONTRACT_REL
+    assert tmc.packed_rows_contract_kernel.launches == before + nb
+
+
+@pytest.mark.parametrize("T,n,m", [(3, 20, 4), (50, 2000, 8), (2, 37, 13)])
+def test_dual_contract_matches_twin(cuda_device, T, n, m):
+    g = torch.Generator(device=cuda_device).manual_seed(n + m)
+    y0 = torch.randn(T, n, n, device=cuda_device, generator=g)
+    Z = torch.randn(T, n, m, device=cuda_device, generator=g)
+    Wp = tdc.pad_data(y0)
+    before = tdc.dual_contract_kernel.launches
+    row, col = tdc.dual_contract_padded(Wp, Z)
+    assert tdc.dual_contract_kernel.launches == before + 1
+    row_t, col_t = tdc.dual_contract_twin(Wp, Z)
+    assert _max_rel(row, row_t) <= CONTRACT_REL
+    assert _max_rel(col, col_t) <= CONTRACT_REL
+
+
+def test_packed_masked_fit_runs_through_k5(cuda_device, monkeypatch):
+    """A 10-iteration masked block fit with TAME_PACKED_MASK=1: one K5
+    launch per block phase and per diagnostics stripe, and the same fit
+    with every stripe through the twin agrees."""
+    model = TemporalAMEModel(n_nodes=12, n_time=5, latent_dim=2, seed=3)
+    Y = model.generate_data(device=cuda_device)
+    p = model.params.to(cuda_device)
+    mask = random_dyad_mask(
+        torch.Generator(device=cuda_device).manual_seed(1), 12, 5, 0.3)
+    init = cavi.init_state(torch.Generator().manual_seed(1), 12, 5, 6,
+                           "full", 0.1, 0.5, device=cuda_device)
+    kw = dict(update_mode="block", num_blocks=4, max_iter=10,
+              learning_rate=0.7, tolerance=0.0, diag_mode="stats",
+              mask=mask)
+    monkeypatch.setenv("TAME_PACKED_MASK", "1")
+    before = tmc.packed_rows_contract_kernel.launches
+    res = cavi.fit_cavi(Y, p, init, **kw)
+    # 4 phase stripes + 4 diagnostics stripes per iteration
+    assert tmc.packed_rows_contract_kernel.launches == before + 80
+    monkeypatch.setattr(tmc, "packed_rows_contract",
+                        tmc.packed_rows_contract_twin)
+    ref = cavi.fit_cavi(Y, p, init, **kw)
+    assert tmc.packed_rows_contract_kernel.launches == before + 80
+    torch.testing.assert_close(res.elbo_history, ref.elbo_history,
+                               rtol=PACKED_FIT_RTOL, atol=0, equal_nan=True)
