@@ -6,11 +6,12 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. build the port's CUDA kernels (K1 spd_solve_inv, K2 logdet_spd,
-   K3 fused_fit, K4 fused_smoother, K5 masked_contract, K6 dual_contract)
-   from ``tame_torch/csrc`` into ``build/tame_torch``;
+   K3 fused_fit, K4 fused_smoother, K5 masked_contract, K6 dual_contract,
+   K7 eta_contract) from ``tame_torch/csrc`` into ``build/tame_torch``;
 2. compare each kernel with its plain PyTorch twin on the same CUDA
-   inputs, at the shapes the main paths give it, and time both with CUDA
-   events (median of several runs), beside the kernel's bound (bytes over
+   inputs, at the shapes the main paths give it (K1, K2 and K4 also at
+   d = 14, their runtime-d variants), and time both with CUDA events
+   (median of several runs), beside the kernel's bound (bytes over
    3.35 TB/s or operations over the peak rate of their type, whichever is
    larger) and, where one PyTorch call computes the same function, that
    call's time;
@@ -36,15 +37,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    to its stop; then the three timed in turns over 40 iterations each;
 8. the masked smoothed fit (warm init, the same mask and flags,
    ``TAME_PACKED_MASK=1``): K4 and K5 in every block phase;
-9. masked variational EM (2 EM iterations of <= 30 inner ones).
+9. masked variational EM (2 EM iterations of <= 30 inner ones);
+10. the layout probe ``tame_torch.scripts.layout_probe3`` at N=2000,
+    T=50, R=4, K=25: the eta contraction's four variants, through K7;
+11. an r = 6 (d = 14) Good-SMF fit and smoothed fit at n=2000, T=50, 20
+    iterations each, through the runtime-d K1/K2 and K4;
+12. the benchmark ``tame_torch.scripts.bench`` with 32 demo fits and 2
+    repeats (its n=2000 legs at full size), which prints its JSON line.
 
-Each of phases 3-9 is a path of its own (phase 7 three): the launch
-counters are zeroed just before it and read just after, and each path must
-have launched its kernels.  K6 lies on no path: its ``launches`` are its
-comparison launches in phase 2.  The second-to-last line is a JSON object
-describing each kernel (``launches`` summed over the paths), the last is
-the device record.  Needs one CUDA card; without one it exits non-zero
-before printing any result.
+Each of phases 3-12 is a path of its own (phases 7 and 11 several): the
+launch counters are zeroed just before it and read just after, and each
+path must have launched its kernels.  K6 lies on no path: its
+``launches`` are its comparison launches in phase 2.  The second-to-last
+line is a JSON object describing each kernel (``launches`` summed over
+the paths), the last is the device record.  Needs one CUDA card; without
+one it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -75,6 +82,8 @@ KERNELS = {
                         "tame/ops/masked_contract.py:68"),
     "dual_contract": ("tame_torch/csrc/dual_contract.cu",
                       "tame/ops/dual_contract.py:45"),
+    "eta_contract": ("tame_torch/csrc/eta_contract.cu",
+                     "scripts/layout_probe3.py:84"),
 }
 REL_TOL = 1e-4     # kernel vs twin: different f32 operation order
 STATE_ATOL = 1e-4  # K3 vs twin state after a fit (tame's fused-fit bound)
@@ -166,7 +175,8 @@ def phase_smoother_kernel(report: dict) -> None:
 
     ext = _ext.load()
     require(all(ext.fused_smoother_smem_bytes(d)
-                == fs.fused_smoother_smem_bytes(d) for d in ch.KERNEL_DIMS),
+                == fs.fused_smoother_smem_bytes(d)
+                for d in ch.UNROLLED_DIMS + (14, 16, ch.MAX_KERNEL_D)),
             "K4 shared-memory formula differs between Python and CUDA")
     gen = torch.Generator(device="cuda").manual_seed(1)
     entry = report["fused_smoother"]
@@ -174,8 +184,10 @@ def phase_smoother_kernel(report: dict) -> None:
     # (i) one block phase of the n=2000 smoothed fit (the reported
     # timing), (ii) one Jacobi sweep at n=2000, (iii) the smallest d with
     # T=2, (iv) T=1, where the backward pass is empty and cross_cov is
-    # (n, 0, d, d).
-    for n, T, d in [(125, 50, 10), (2000, 50, 10), (3, 2, 4), (3, 1, 4)]:
+    # (n, 0, d, d), (v) one block phase of the r = 6 smoothed fit (the
+    # runtime-d kernel).
+    for n, T, d in [(125, 50, 10), (2000, 50, 10), (3, 2, 4), (3, 1, 4),
+                    (125, 50, 14)]:
         D, O, b = smoother_system(n, T, d, gen)
         k = fs.fused_smoother_kernel(D, O, b)
         torch.cuda.synchronize()
@@ -193,13 +205,14 @@ def phase_smoother_kernel(report: dict) -> None:
         ms = cuda_ms(lambda: fs.fused_smoother_kernel(D, O, b))
         plain_ms = cuda_ms(lambda: fs.fused_smoother_twin(D, O, b), reps=5,
                            warmup=1)
-        print(f"K4 n={n} T={T} d={d}: kernel {ms} ms, twin {plain_ms} ms")
+        # forward: two d x d products, a factor and an inverse per step;
+        # backward: three products per step
+        flops = n * T * d**3 * (4 + 1 / 3 + 2) + n * (T - 1) * 6 * d**3
+        b_ = bound(nbytes(D, O, b, *k), flops, "f32")
+        print(f"K4 n={n} T={T} d={d}: kernel {ms} ms, twin {plain_ms} ms, "
+              f"bound {b_['bound_ms']} ms ({b_['bound_by']})")
         if "ms" not in entry:
-            # forward: two d x d products, a factor and an inverse per
-            # step; backward: three products per step
-            flops = n * T * d**3 * (4 + 1 / 3 + 2) + n * (T - 1) * 6 * d**3
-            entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                         **bound(nbytes(D, O, b, *k), flops, "f32"))
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=None, **b_)
 
 
 def fused_fit_flops(n: int, T: int, d: int, num_blocks: int,
@@ -226,9 +239,11 @@ def phase_kernels(report: dict) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     # K1 at a block phase (B = 125 * 50) and a Jacobi sweep (n T) of the
-    # n=2000 fit, plus a ragged batch at the demo's d.
+    # n=2000 fit, a ragged batch at the demo's d, and the runtime-d kernel
+    # at the r = 6 fit's block phase and a ragged batch.
     for d, B, timed in [(10, 6250, True), (10, 100000, False),
-                        (6, 1001, False)]:
+                        (6, 1001, False), (14, 6250, False),
+                        (14, 1001, False)]:
         P, eta = spd_batch(B, d, gen)
         mu, cov = ch.spd_solve_inv_kernel(P, eta)
         mu_t, cov_t = ch.spd_solve_inv_twin(P, eta)
@@ -243,6 +258,13 @@ def phase_kernels(report: dict) -> None:
                 f"K1 disagrees with its twin at d={d} B={B}")
         entry = report["spd_solve_inv"]
         entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), worst)
+        if d == 14 and B == 6250:
+            print(f"K1 d=14 B=6250 (runtime d): kernel "
+                  f"{cuda_ms(lambda: ch.spd_solve_inv_kernel(P, eta))} ms, "
+                  f"twin {cuda_ms(lambda: ch.spd_solve_inv_twin(P, eta))} "
+                  f"ms, bound " + str(bound(
+                      nbytes(P, eta, mu, cov),
+                      2 * B * (d**3 / 3 + 2 * d**3 + 2 * d * d), "f32")))
         if timed:
             entry["ms"] = cuda_ms(lambda: ch.spd_solve_inv_kernel(P, eta))
             entry["plain_ms"] = cuda_ms(lambda: ch.spd_solve_inv_twin(P, eta))
@@ -269,6 +291,21 @@ def phase_kernels(report: dict) -> None:
     print(f"K2: kernel {entry['ms']} ms, twin {entry['plain_ms']} ms, "
           f"torch.logdet {entry['library_ms']} ms, bound "
           f"{entry['bound_ms']} ms")
+    # the runtime-d K2 at a ragged batch and the r = 6 entropy batch
+    # (n T = 100,000, d = 14), timed at the latter
+    for B in (1001, 100000):
+        P, _ = spd_batch(B, 14, gen)
+        ld, ld_t = ch.logdet_spd_kernel(P), ch.logdet_spd_twin(P)
+        torch.cuda.synchronize()
+        err, rel = rel_err(ld, ld_t)
+        require(rel <= REL_TOL, f"K2 disagrees with its twin at d=14 B={B}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        print(f"K2 d=14 B={B} (runtime d): max_abs_err {err} rel {rel}")
+    print(f"K2 d=14 B=100000 (runtime d): kernel "
+          f"{cuda_ms(lambda: ch.logdet_spd_kernel(P))} ms, twin "
+          f"{cuda_ms(lambda: ch.logdet_spd_twin(P))} ms, torch.logdet "
+          f"{cuda_ms(lambda: torch.logdet(P))} ms, bound "
+          f"{bound(nbytes(P, ld), 2 * 100000 * 14**3 / 3, 'f32')}")
 
     # K3 at the demo configuration, block updates with 15 blocks.
     ext = _ext.load()
@@ -598,6 +635,110 @@ def phase_contract_kernels(report: dict) -> None:
     require(entry["launches"] == 2, "K6 did not launch")
 
 
+def phase_eta_kernel(report: dict) -> None:
+    """K7 against its twin at the probe's shape and two ragged ones, timed
+    beside the bf16 ``bmm`` with float32 output on the same (contiguous)
+    weights and a bf16 copy of the panel made beforehand."""
+    from tame_torch.ops import eta_contract as ec
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    entry = report["eta_contract"]
+    entry["max_abs_err"] = 0.0
+    for T, N, R in [(50, 2000, 4), (3, 37, 1), (3, 37, 16)]:
+        W = torch.randn(T, N, N, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        Z = torch.randn(T, N, R, device="cuda", generator=gen)
+        got = ec.eta_contract_kernel(W, Z)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ec.eta_contract_twin(W, Z))
+        print(f"K7 T={T} N={N} R={R}: max_abs_err {err} rel {rel}")
+        require(rel <= REL_TOL,
+                f"K7 disagrees with its twin at T={T} N={N} R={R}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        ms = cuda_ms(lambda: ec.eta_contract_kernel(W, Z))
+        plain_ms = cuda_ms(lambda: ec.eta_contract_twin(W, Z), reps=5,
+                           warmup=1)
+        Zb = Z.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.bmm(W, Zb, out_dtype=torch.float32))
+        b = bound(nbytes(W, Z, got), 2 * T * N * N * R, "bf16")
+        print(f"K7 T={T} N={N} R={R}: kernel {ms} ms, twin {plain_ms} ms, "
+              f"bf16 bmm {lib_ms} ms, bound {b['bound_ms']} ms "
+              f"({b['bound_by']})")
+        if "ms" not in entry:  # the probe's shape
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+        del W, Z, Zb, got
+
+
+def phase_layout_probe() -> dict:
+    from tame_torch.scripts import layout_probe3
+
+    res = layout_probe3.main([])
+    require(res["k7_launches"] > 0, "the layout probe did not run K7")
+    return res
+
+
+def high_rank_model():
+    """n=2000, T=50, r=6 (d=14) data drawn on the card."""
+    from tame_torch import TemporalAMEModel
+
+    model = TemporalAMEModel(n_nodes=2000, n_time=50, latent_dim=6, seed=0)
+    model.generate_data(
+        generator=torch.Generator(device="cuda").manual_seed(6))
+    return model
+
+
+def check_history(label: str, h: dict, n_iter: int, ms: float) -> None:
+    mse = h["reconstruction_error"]
+    print(f"{label}: {len(h['elbo'])} iterations, {ms / len(h['elbo'])} "
+          f"ms/iteration, ELBO {h['elbo'][0]} -> {h['elbo'][-1]}, MSE "
+          f"{mse[0]} -> {mse[-1]}")
+    require(len(h["elbo"]) == n_iter, f"{label} stopped early")
+    require(all(math.isfinite(v) for v in h["elbo"] + mse),
+            f"non-finite {label} history")
+    require(mse[-1] < mse[0] and h["elbo"][-1] > h["elbo"][0],
+            f"{label} did not improve its fit")
+
+
+def phase_high_rank_good(model) -> int:
+    """An r = 6 Good-SMF fit (16 blocks, exact diagnostics) of 20
+    iterations through the runtime-d K1 and K2."""
+    from tame_torch import TemporalAMEStructuredMFVI
+
+    vi = TemporalAMEStructuredMFVI(model, factorization="good",
+                                   learning_rate=0.8)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    h = vi.fit(max_iter=20, tolerance=0.0, verbose=False)
+    end.record()
+    end.synchronize()
+    check_history("n=2000 T=50 r=6 Good SMF", h, 20, start.elapsed_time(end))
+    return 20
+
+
+def phase_high_rank_smoothed(model) -> int:
+    """An r = 6 smoothed fit (warm init, 16 blocks) of 20 iterations
+    through the runtime-d K4."""
+    from tame_torch import TemporalAMESmoothedVI
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    vi = TemporalAMESmoothedVI(model, init_mode="warm", learning_rate=0.8)
+    start.record()
+    h = vi.fit(max_iter=20, tolerance=0.0, verbose=False)
+    end.record()
+    end.synchronize()
+    check_history("n=2000 T=50 r=6 smoothed (warm init)", h, 20,
+                  start.elapsed_time(end))
+    return 20
+
+
+def phase_bench() -> dict:
+    from tame_torch.scripts import bench
+
+    return bench.main(["--n-fits", "32", "--repeats", "2"])
+
+
 def mse_split(Y: torch.Tensor, X_mean: torch.Tensor, mask: torch.Tensor):
     """(observed, held-out) reconstruction MSE of the fitted means over
     the dyads ``mask`` shows and the off-diagonal ones it hides."""
@@ -690,6 +831,7 @@ def main() -> int:
     import tame_torch  # noqa: F401  (sets TF32 off)
     from tame_torch.ops import _ext
     from tame_torch.ops import cholesky as ch
+    from tame_torch.ops import eta_contract as ec
     from tame_torch.ops import fused_fit as ff
     from tame_torch.ops import fused_smoother as fs
     from tame_torch.ops import masked_contract as mc
@@ -710,12 +852,14 @@ def main() -> int:
     phase_kernels(report)
     phase_smoother_kernel(report)
     phase_contract_kernels(report)
+    phase_eta_kernel(report)
 
     wrappers = {"spd_solve_inv": ch.spd_solve_inv_kernel,
                 "logdet_spd": ch.logdet_spd_kernel,
                 "fused_fit": ff.fused_fit_kernel,
                 "fused_smoother": fs.fused_smoother_kernel,
-                "masked_contract": mc.packed_rows_contract_kernel}
+                "masked_contract": mc.packed_rows_contract_kernel,
+                "eta_contract": ec.eta_contract_kernel}
     paths = []
 
     def drive(label, path, *args):
@@ -791,6 +935,27 @@ def main() -> int:
     del model, mask
     _, mem = drive("n=2000 masked EM", phase_masked_em)
     require(mem["fused_smoother"] > 0, "the masked EM did not run K4")
+
+    _, probe = drive("layout probe N=2000 T=50 R=4 K=25", phase_layout_probe)
+    require(probe["eta_contract"] > 0, "the layout probe did not run K7")
+    model = high_rank_model()
+    n_iter, hgood = drive("n=2000 r=6 Good SMF", phase_high_rank_good, model)
+    require(hgood["spd_solve_inv"] == 16 * n_iter
+            and hgood["logdet_spd"] == n_iter and hgood["fused_fit"] == 0,
+            "the r=6 Good-SMF fit did not run K1 per block phase and K2 per "
+            "iteration")
+    n_iter, hsmooth = drive("n=2000 r=6 smoothed", phase_high_rank_smoothed,
+                            model)
+    require(hsmooth["fused_smoother"] == 16 * n_iter,
+            "the r=6 smoothed fit did not launch K4 once per block phase")
+    del model
+    _, bench = drive("bench (32 demo fits, 2 repeats)", phase_bench)
+    # 32 fits in the warm-up run and in each of the 2 timed runs
+    require(bench["fused_fit"] == 3 * 32, "the bench demo leg did not run "
+            "one K3 launch per fit")
+    require(bench["spd_solve_inv"] > 0 and bench["logdet_spd"] > 0
+            and bench["fused_smoother"] > 0,
+            "the bench n=2000 legs did not run K1, K2 and K4")
     launches = {k: sum(c[k] for c in paths) for k in wrappers}
     launches["dual_contract"] = report["dual_contract"].pop("launches")
 

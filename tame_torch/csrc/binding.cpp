@@ -226,6 +226,29 @@ std::tuple<torch::Tensor, torch::Tensor> dual_contract(torch::Tensor W,
   return {row, col};
 }
 
+torch::Tensor eta_contract(torch::Tensor W, torch::Tensor Z) {
+  TORCH_CHECK(W.is_cuda() && W.scalar_type() == torch::kBFloat16 &&
+                  W.is_contiguous() && W.dim() == 3 && W.size(1) == W.size(2),
+              "W must be a contiguous (T, N, N) bf16 CUDA tensor");
+  check(Z, "Z");
+  TORCH_CHECK(Z.dim() == 3 && Z.size(0) == W.size(0) && Z.size(1) == W.size(1),
+              "Z must be (T, N, R)");
+  TORCH_CHECK(Z.size(2) >= 1 && Z.size(2) <= 16,
+              "eta_contract is built for 1 <= R <= 16");
+  TORCH_CHECK(W.size(0) <= std::numeric_limits<int>::max() &&
+                  W.size(1) <= std::numeric_limits<int>::max(),
+              "W too large");
+  const int T = static_cast<int>(W.size(0)), N = static_cast<int>(W.size(1)),
+            R = static_cast<int>(Z.size(2));
+  const c10::cuda::CUDAGuard guard(W.device());
+  auto out = torch::empty({T, N, R}, Z.options());
+  check_launch(tame_eta_contract(W.data_ptr(), Z.data_ptr<float>(),
+                                 out.data_ptr<float>(), T, N, R,
+                                 at::cuda::getCurrentCUDAStream()),
+               "eta_contract");
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -242,4 +265,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K5: int8 mask stripe @ bf16-rounded feature panel");
   m.def("dual_contract", &dual_contract,
         "K6: W @ Z and W' @ Z from one pass over bf16 data");
+  m.def("eta_contract", &eta_contract,
+        "K7: per-step W @ bf16(Z) over bf16 (T, N, N) weights, f32 sums");
 }

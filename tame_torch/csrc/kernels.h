@@ -1,8 +1,9 @@
 // Host-side launchers of the port's CUDA kernels.  Plain pointers and
 // sizes only, so the .cu files never include PyTorch's headers; the one
 // binding file (binding.cpp) checks tensors and calls these.  Each returns
-// cudaGetLastError() after its launch (cudaErrorInvalidValue for a d that
-// has no instantiation).
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for a size no
+// kernel takes).  K1, K2 and K4 take d in {4, ..., 12} unrolled and every
+// other even d up to 48 in a runtime-d kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,8 +55,8 @@ cudaError_t tame_fused_smoother(const float* D, const float* O, const float* b,
                                 float* logdet, int n, int T, int d,
                                 cudaStream_t stream);
 
-// Static shared memory of one K4 block (bytes); 0 for a d with no
-// instantiation.
+// Shared memory of one K4 block (bytes): static for d in {4, ..., 12},
+// dynamic for the runtime-d kernel (even d up to 48); 0 for any other d.
 size_t tame_fused_smoother_smem_bytes(int d);
 
 // K5: out[i, t, k] = sum_j M[t, i, j] bf16(Z[j, t, k]).  M (T, bs_pad,
@@ -72,3 +73,9 @@ cudaError_t tame_masked_contract(const int8_t* M, const float* Z, float* out,
 cudaError_t tame_dual_contract(const void* W, const float* Z, float* row,
                                float* col, int T, int n, int cols_pad, int m,
                                cudaStream_t stream);
+
+// K7: out[t, i, r] = sum_j W[t, i, j] bf16(Z[t, j, r]).  W (T, N, N) bf16
+// (__nv_bfloat16); Z (T, N, R) float32 with 1 <= R <= 16; out (T, N, R)
+// float32, every entry written.
+cudaError_t tame_eta_contract(const void* W, const float* Z, float* out, int T,
+                              int N, int R, cudaStream_t stream);

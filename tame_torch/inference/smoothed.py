@@ -314,7 +314,7 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     d = init.X_mean.shape[-1]
     if fused is True and not fused_smoother_supported(n, T, d):
         raise ValueError(f"fused smoother unsupported for n={n}, T={T}, "
-                         f"d={d} (needs d in (4, 6, 8, 10, 12))")
+                         f"d={d} (needs an even d from 4 to 48)")
     if update_mode == "auto":
         update_mode = "block" if n >= 256 else "jacobi"
     if update_mode == "block" and num_blocks is None:

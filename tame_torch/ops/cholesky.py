@@ -12,9 +12,12 @@ K1 ``spd_solve_inv`` (``csrc/spd.cu``) replaces
 ``tame/ops/cholesky.py::_chol_solve_inv_kernel`` (via
 ``_pallas_spd_solve_inv``).  K2 ``logdet_spd`` (same file) replaces
 ``tame/ops/cholesky.py::_logdet_kernel`` (via ``_pallas_logdet``).  Both
-run one thread per system with the factor in registers (the unrolled
-``template<int D>`` Cholesky of ``csrc/chol.cuh``), built for
-D in {4, 6, 8, 10, 12}.  On the card they are bound by device-memory
+run one thread per system.  For d in :data:`UNROLLED_DIMS` the factor lives
+in registers (the unrolled ``template<int D>`` Cholesky of
+``csrc/chol.cuh``); every other even d up to :data:`MAX_KERNEL_D` (the JAX
+kernels unroll for any d, and an r = 6 model has d = 14) runs a runtime-d
+variant with the factor in shared memory.  On the card they are bound by
+device-memory
 traffic: K1 with the inverse reads d^2 + d and writes d^2 + d floats per
 system for ~d^3 flops, far below the H100's flop/byte balance.  Reading a
 row-major (B, d, d) batch one system per thread is uncoalesced (adjacent
@@ -29,14 +32,23 @@ import torch
 
 from tame_torch.ops import _ext
 
-KERNEL_DIMS = (4, 6, 8, 10, 12)
+UNROLLED_DIMS = (4, 6, 8, 10, 12)  # template<int D> instantiations
+MAX_KERNEL_D = 48                  # the runtime-d variants' largest d
+KERNEL_D_TEXT = f"{{4, 6, ..., {MAX_KERNEL_D}}}"
+
+
+def kernel_supports_d(d: int) -> bool:
+    """Whether K1, K2 and K4 have a build for state dimension ``d``
+    (unrolled or runtime-d): every even d from 4 to :data:`MAX_KERNEL_D`,
+    i.e. d = 2 + 2r for r = 1 .. 23."""
+    return d % 2 == 0 and 4 <= d <= MAX_KERNEL_D
 
 
 def _check_kernel_inputs(P: torch.Tensor, *others: torch.Tensor) -> None:
     d = P.shape[-1]
-    if d not in KERNEL_DIMS:
+    if not kernel_supports_d(d):
         raise ValueError(
-            f"the CUDA SPD kernels are built for d in {KERNEL_DIMS}, got "
+            f"the CUDA SPD kernels are built for d in {KERNEL_D_TEXT}, got "
             f"d={d}")
     for t in (P,) + others:
         if t.dtype != torch.float32:

@@ -13,7 +13,8 @@ phase, phases in sequence); running many fits across SMs is later work.
 Scope (checked by :func:`fused_fit_supported`): structures ``diag``,
 ``full``, ``block``; ``jacobi`` or ``block`` updates; exact diagnostics
 every iteration; float32 weights (no ``mixed_precision``); no mask; d in
-{4, 6, 8, 10, 12}; and the fit's shared
+:data:`FUSED_DIMS`, the JAX envelope d <= 12 (K1, K2 and K4 also take
+larger d; K3 does not); and the fit's shared
 memory (:func:`fused_fit_smem_bytes`) within the 227 KB a Hopper block may
 use.  At d=6 the state alone is (d + d^2) n T 4 B: 25 KB at n=15, T=10
 (inside) and 168 KB at n=100, T=10 (inside with 10 blocks, outside as one
@@ -31,9 +32,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from tame_torch.ops import _ext
-from tame_torch.ops.cholesky import KERNEL_DIMS, _on_card
+from tame_torch.ops.cholesky import _on_card
 
 SMEM_LIMIT_BYTES = 232448  # 227 KB: the most one block may use on sm_90
+# d = 2 + 2r for r = 1..5: the sizes K3 is instantiated for, as the JAX
+# megakernel's d <= 12 (tame/ops/fused_fit.py, fused_fit_supported).
+FUSED_DIMS = (4, 6, 8, 10, 12)
 _STRUCTURE_CODES = {"diag": 0, "full": 1, "block": 2}
 
 
@@ -59,7 +63,7 @@ def fused_fit_supported(n: int, T: int, d: int, *, structure: str,
     if (structure not in _STRUCTURE_CODES
             or update_mode not in ("jacobi", "block")
             or diag_mode != "exact" or elbo_every != 1 or mixed_precision
-            or d not in KERNEL_DIMS):
+            or d not in FUSED_DIMS):
         return False
     if update_mode == "jacobi":
         num_blocks = 1
@@ -113,8 +117,8 @@ def fused_fit_kernel(Y, R_inv, Sigma0, Q, Phi, X_mean0, X_cov0, max_iter,
     """Launch K3 on CUDA tensors."""
     n, _, T, _ = Y.shape
     d = 2 + 2 * r
-    if d not in KERNEL_DIMS:
-        raise ValueError(f"K3 is built for d in {KERNEL_DIMS}, got d={d}")
+    if d not in FUSED_DIMS:
+        raise ValueError(f"K3 is built for d in {FUSED_DIMS}, got d={d}")
     if n % num_blocks != 0:
         raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
     if max_iter > buf_size:

@@ -23,11 +23,18 @@ one entry per thread, the factor of S_t on one thread (the shared
 The TPU kernel's output-reuse trick stays: the forward pass parks S_t^-1
 in ``cov`` and c_t in ``mean``, the backward pass overwrites them.
 
+Every other even d up to 48 runs a runtime-d variant of the same kernel:
+loops not unrolled, the same working matrices as dynamic shared memory,
+threads striding over the d^2 entries.  The JAX package's smoothed fit
+leaves its Pallas smoother for a ``lax.scan`` at d > 12; the port keeps
+K4, which solves the same system (a deliberate difference, ROADMAP C).
+
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches K4 or
-raises.  The envelope (:func:`fused_smoother_supported`) is d in
-{4, 6, 8, 10, 12} and T >= 1 (at T = 1 the backward pass is empty and
-``cross_cov`` is (n, 0, d, d)); the shared memory of one block is at most
-3,124 B (d = 12), so it bounds nothing.
+raises.  The envelope (:func:`fused_smoother_supported`) is every even d
+from 4 to 48 and T >= 1 (at T = 1 the backward pass is empty and
+``cross_cov`` is (n, 0, d, d)); one block's shared memory is 3,124 B at
+d = 12, 4,204 B at d = 14 and 47,044 B at d = 48, under the 48 KB a block
+gets without opting in.
 """
 
 from __future__ import annotations
@@ -37,14 +44,15 @@ from typing import NamedTuple
 import torch
 
 from tame_torch.ops import _ext
-from tame_torch.ops.cholesky import KERNEL_DIMS, _on_card
+from tame_torch.ops.cholesky import (KERNEL_D_TEXT, _on_card,
+                                     kernel_supports_d)
 from tame_torch.ops.tridiag import block_tridiag_smoother
 
 
 def fused_smoother_smem_bytes(d: int) -> int:
-    """Static shared memory of one K4 block; mirrors ``SmootherSmem<D>`` in
-    ``csrc/fused_smoother.cu`` (five d x d matrices, five d-vectors and
-    the logdet), far below the 48 KB a block may declare statically."""
+    """Shared memory of one K4 block; mirrors ``SmootherSmem<D>`` and
+    ``smoother_rt_floats`` in ``csrc/fused_smoother.cu`` (five d x d
+    matrices, five d-vectors and the logdet)."""
     return 4 * (5 * d * d + 5 * d + 1)
 
 
@@ -52,7 +60,7 @@ def fused_smoother_supported(n: int, T: int, d: int) -> bool:
     """Whether K4 covers ``n`` trajectories of length ``T`` at state
     dimension ``d``.  Neither ``n`` (one block per node) nor shared memory
     (independent of n and T) bounds it."""
-    return d in KERNEL_DIMS and T >= 1
+    return kernel_supports_d(d) and T >= 1
 
 
 class FusedSmootherOut(NamedTuple):
@@ -74,7 +82,7 @@ def fused_smoother_kernel(D: torch.Tensor, O: torch.Tensor,
     n, T, d, _ = D.shape
     if not fused_smoother_supported(n, T, d):
         raise ValueError(
-            f"K4 is built for d in {KERNEL_DIMS} and T >= 1, got d={d}, "
+            f"K4 is built for d in {KERNEL_D_TEXT} and T >= 1, got d={d}, "
             f"T={T}")
     for name, x in (("D", D), ("O", O), ("b", b)):
         if x.dtype != torch.float32:

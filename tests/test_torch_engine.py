@@ -25,6 +25,10 @@ from tame_torch.ops import fused_fit as tff
 torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+SCRIPT_MODULES = sorted(
+    f"tame_torch.scripts.{p.stem}"
+    for p in (REPO / "tame_torch" / "scripts").glob("*.py")
+    if p.stem != "__init__")
 
 
 def demo_pattern(mse):
@@ -152,6 +156,9 @@ class TestPackage:
                 "import tame_torch.ops.fused_smoother as fs; "
                 "import tame_torch.inference.smoothed, "
                 "tame_torch.inference.em, tame_torch.inference.evidence; "
+                "import tame_torch.ops.eta_contract, "
+                "tame_torch.utils.profiling; "
+                f"import {', '.join(SCRIPT_MODULES)}; "
                 "assert 'tame' not in sys.modules; "
                 "print(ff.fused_fit_supported(15, 10, 6, structure='full', "
                 "update_mode='block', diag_mode='exact', elbo_every=1, "

@@ -18,6 +18,7 @@ from tame_torch.models import (TemporalAMEModel, build_params,
                                random_dyad_mask)
 from tame_torch.ops import cholesky as tchol
 from tame_torch.ops import dual_contract as tdc
+from tame_torch.ops import eta_contract as tec
 from tame_torch.ops import fused_fit as tff
 from tame_torch.ops import fused_smoother as tfs
 from tame_torch.ops import masked_contract as tmc
@@ -58,7 +59,8 @@ def _spd(B, d, device, seed):
 
 
 @pytest.mark.parametrize("d,B", [(4, 1001), (6, 1001), (8, 130),
-                                 (10, 6250), (12, 777)])
+                                 (10, 6250), (12, 777), (14, 6250),
+                                 (16, 777), (48, 33)])
 def test_spd_kernels_match_twins(cuda_device, d, B):
     P, eta = _spd(B, d, cuda_device, d)
     mu, cov = tchol.spd_solve_inv_kernel(P, eta)
@@ -164,7 +166,8 @@ def _smoother_system(n, T, d, device, seed):
 
 
 @pytest.mark.parametrize("n,T,d", [(125, 50, 10), (2000, 50, 10),
-                                   (3, 2, 4), (3, 1, 4)])
+                                   (3, 2, 4), (3, 1, 4), (125, 50, 14),
+                                   (7, 5, 16), (3, 1, 14), (2, 3, 48)])
 def test_fused_smoother_matches_twin(cuda_device, n, T, d):
     D, O, b = _smoother_system(n, T, d, cuda_device, d + T)
     k = tfs.fused_smoother_kernel(D, O, b)
@@ -182,9 +185,10 @@ def test_fused_smoother_envelope_and_smem_formula(cuda_device):
     from tame_torch.ops import _ext
 
     ext = _ext.load()
-    for d in tchol.KERNEL_DIMS:
+    for d in tchol.UNROLLED_DIMS + (14, 16, tchol.MAX_KERNEL_D):
         assert ext.fused_smoother_smem_bytes(d) == \
             tfs.fused_smoother_smem_bytes(d)
+    assert ext.fused_smoother_smem_bytes(tchol.MAX_KERNEL_D + 2) == 0
     D, O, b = _smoother_system(4, 3, 6, cuda_device, 0)
     with pytest.raises(ValueError, match="built for d in"):
         tfs.fused_smoother(D[..., :5, :5], O[:5, :5], b[..., :5])
@@ -208,15 +212,73 @@ def test_smoothed_fit_runs_through_k4(cuda_device, monkeypatch):
 
 
 def test_smoothed_fit_outside_k4_envelope_raises(cuda_device):
-    """d = 14 (r = 6) has no K4 build: on the card the fit raises, as
-    K1-K3 do, instead of falling back to the twin."""
-    model = TemporalAMEModel(n_nodes=6, n_time=3, latent_dim=6, seed=0)
+    """d = 50 (r = 24) is past every K4 build (even d up to 48): on the
+    card the fit raises, as K1-K3 do, instead of falling back to the
+    twin."""
+    model = TemporalAMEModel(n_nodes=6, n_time=3, latent_dim=24, seed=0)
     Y = model.generate_data(device=cuda_device)
     p = model.params.to(cuda_device)
     init = smoothed.init_smoothed_state(
-        torch.Generator(device=cuda_device).manual_seed(0), 6, 3, 14)
+        torch.Generator(device=cuda_device).manual_seed(0), 6, 3, 50)
     with pytest.raises(ValueError, match="built for d in"):
         smoothed.fit_cavi_smoothed(Y, p, init, max_iter=2)
+
+
+@pytest.mark.parametrize("kind", ["good", "smoothed"])
+def test_high_rank_fit_runs_through_runtime_d_kernels(cuda_device, kind,
+                                                      monkeypatch):
+    """An r = 6 (d = 14) fit on the card runs through the runtime-d
+    K1/K2 (Good SMF; K3 keeps d <= 12) or K4 (smoothed) and matches the
+    same fit on the card with every kernel call through its twin."""
+    model = TemporalAMEModel(n_nodes=12, n_time=5, latent_dim=6, seed=3)
+    Y = model.generate_data(device=cuda_device)
+    p = model.params.to(cuda_device)
+    kw = dict(max_iter=10, tolerance=0.0, update_mode="block", num_blocks=4)
+    if kind == "good":
+        init = cavi.init_state(torch.Generator().manual_seed(1), 12, 5, 14,
+                               "full", 0.1, 0.5, device=cuda_device)
+
+        def fit():
+            return cavi.fit_cavi(Y, p, init, learning_rate=0.7, **kw)
+
+        counters = (tchol.spd_solve_inv_kernel, tchol.logdet_spd_kernel,
+                    tff.fused_fit_kernel)
+        before = [c.launches for c in counters]
+        res = fit()
+        assert [c.launches - b for c, b in zip(counters, before)] == \
+            [40, 10, 0]
+        monkeypatch.setattr(tchol, "spd_solve_inv_kernel",
+                            tchol.spd_solve_inv_twin)
+        monkeypatch.setattr(tchol, "logdet_spd_kernel",
+                            tchol.logdet_spd_twin)
+    else:
+        init = smoothed.warm_init_smoothed_state(Y, p)
+
+        def fit():
+            return smoothed.fit_cavi_smoothed(Y, p, init, **kw)
+
+        before = tfs.fused_smoother_kernel.launches
+        res = fit()
+        assert tfs.fused_smoother_kernel.launches == before + 40
+        monkeypatch.setattr(smoothed, "fused_smoother",
+                            tfs.fused_smoother_twin)
+    ref = fit()
+    torch.testing.assert_close(res.elbo_history, ref.elbo_history,
+                               rtol=RTOL, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("T,N,R", [(50, 2000, 4), (3, 48, 4), (3, 37, 1),
+                                   (3, 37, 16), (2, 40, 7), (1, 8200, 2)])
+def test_eta_contract_matches_twin(cuda_device, T, N, R):
+    g = torch.Generator(device=cuda_device).manual_seed(N + R)
+    W = torch.randn(T, N, N, device=cuda_device, generator=g).to(
+        torch.bfloat16)
+    Z = torch.randn(T, N, R, device=cuda_device, generator=g)
+    before = tec.eta_contract_kernel.launches
+    got = tec.eta_contract(W, Z)
+    assert tec.eta_contract_kernel.launches == before + 1
+    assert _max_rel(got, tec.eta_contract_twin(W, Z)) <= CONTRACT_REL
+
 
 
 def _max_rel(got, ref):

@@ -289,10 +289,10 @@ class TestFitParity:
                    dict(diag_mode="bogus"), dict(fused="bogus")]:
             with pytest.raises(ValueError):
                 tsm.fit_cavi_smoothed(tY, tp, ts, **kw)
-        t14 = tsm.init_smoothed_state(torch.Generator().manual_seed(0), 4,
-                                      3, 14)
+        t50 = tsm.init_smoothed_state(torch.Generator().manual_seed(0), 4,
+                                      3, 50)
         with pytest.raises(ValueError, match="unsupported"):
-            tsm.fit_cavi_smoothed(tY, tp, t14, fused=True)  # no d = 14 K4
+            tsm.fit_cavi_smoothed(tY, tp, t50, fused=True)  # no K4 past 48
         t1 = tsm.init_smoothed_state(torch.Generator().manual_seed(0), 4, 1,
                                      4)
         for fused in ("auto", True, False):  # every choice runs the twin

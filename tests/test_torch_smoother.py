@@ -123,5 +123,9 @@ def test_cpu_dispatch_and_envelope():
     assert tfs.fused_smoother_supported(2000, 50, 10)
     assert tfs.fused_smoother_supported(3, 2, 4)
     assert tfs.fused_smoother_supported(3, 1, 4)          # T = 1: no cross
-    assert not tfs.fused_smoother_supported(3, 5, 14)     # no D = 14 build
+    assert tfs.fused_smoother_supported(3, 5, 14)         # runtime d
+    assert tfs.fused_smoother_supported(3, 5, 48)
+    assert not tfs.fused_smoother_supported(3, 5, 50)     # past every build
+    assert not tfs.fused_smoother_supported(3, 5, 5)      # odd d
     assert tfs.fused_smoother_smem_bytes(10) == 2204
+    assert tfs.fused_smoother_smem_bytes(14) == 4204
