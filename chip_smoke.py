@@ -9,8 +9,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    K3 fused_fit, K4 fused_smoother, K5 masked_contract, K6 dual_contract,
    K7 eta_contract) from ``tame_torch/csrc`` into ``build/tame_torch``;
 2. compare each kernel with its plain PyTorch twin on the same CUDA
-   inputs, at the shapes the main paths give it (K1, K2 and K4 also at
-   d = 14, their runtime-d variants), and time both with CUDA events
+   inputs, at the shapes the main paths give it (K1 and K2 also at
+   d = 14, their runtime-d variants; K4 also at d = 14, 32, 34 and 48 and
+   with one indefinite node, which must come out NaN), and time both with CUDA events
    (median of several runs), beside the kernel's bound (bytes over
    3.35 TB/s or operations over the peak rate of their type, whichever is
    larger) and, where one PyTorch call computes the same function, that
@@ -92,6 +93,9 @@ LOGDET_RTOL = 1e-5  # K4 logdet: a sum of T d logs, each exact to f32 rounding
 # whose bf16-rounded panels are summed in another order.
 MASKED_ELBO_RTOL = 1e-3
 
+# The K4 paths' ms/iteration, printed beside K4's own times at the end.
+K4_PATHS: dict = {}
+
 # NVIDIA H100 SXM data sheet (dense): device memory 3.35 TB/s; float32 on
 # the CUDA cores 67 TFLOP/s; bf16 on the tensor cores 989 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -168,40 +172,55 @@ def smoother_system(n: int, T: int, d: int, gen: torch.Generator):
                                            generator=gen)
 
 
+def k4_compare(label: str, k, t, nodes=None) -> float:
+    """Require K4's outputs ``k`` within REL_TOL (mean, cov, cross_cov)
+    and LOGDET_RTOL (logdet) of the twin's ``t`` on ``nodes`` (all when
+    None); returns the largest absolute error."""
+    errs = {}
+    for name in ("mean", "cov", "cross_cov"):
+        got, ref = getattr(k, name), getattr(t, name)
+        if nodes is not None:
+            got, ref = got[nodes], ref[nodes]
+        errs[name] = rel_err(got, ref)
+    kl, tl = ((k.logdet, t.logdet) if nodes is None
+              else (k.logdet[nodes], t.logdet[nodes]))
+    ld_rel = ((kl - tl).abs() / tl.abs()).max().item()
+    print(f"K4 {label}: (max_abs_err, rel) {errs}, logdet rel {ld_rel}")
+    require(all(e[1] <= REL_TOL for e in errs.values())
+            and ld_rel <= LOGDET_RTOL, f"K4 disagrees with its twin at {label}")
+    return max(e[0] for e in errs.values())
+
+
 def phase_smoother_kernel(report: dict) -> None:
     from tame_torch.ops import _ext
     from tame_torch.ops import cholesky as ch
     from tame_torch.ops import fused_smoother as fs
 
     ext = _ext.load()
-    require(all(ext.fused_smoother_smem_bytes(d)
-                == fs.fused_smoother_smem_bytes(d)
-                for d in ch.UNROLLED_DIMS + (14, 16, ch.MAX_KERNEL_D)),
-            "K4 shared-memory formula differs between Python and CUDA")
+    require(all(ext.fused_smoother_smem_bytes(d, w)
+                == fs.fused_smoother_smem_bytes(d, w)
+                and ext.fused_smoother_warps(n, d) == fs.fused_smoother_warps(n, d)
+                for d in ch.UNROLLED_DIMS + (14, 16, 32, 34, ch.MAX_KERNEL_D)
+                for w in range(1, fs.MAX_WARPS + 1) for n in (125, 2000)),
+            "K4 shared-memory or packing formula differs between Python and "
+            "CUDA")
     gen = torch.Generator(device="cuda").manual_seed(1)
     entry = report["fused_smoother"]
     entry["max_abs_err"] = 0.0
     # (i) one block phase of the n=2000 smoothed fit (the reported
-    # timing), (ii) one Jacobi sweep at n=2000, (iii) the smallest d with
-    # T=2, (iv) T=1, where the backward pass is empty and cross_cov is
-    # (n, 0, d, d), (v) one block phase of the r = 6 smoothed fit (the
-    # runtime-d kernel).
+    # timing), (ii) one Jacobi sweep at n=2000 (four nodes per block),
+    # (iii) the smallest d with T=2, (iv) T=1, where the backward pass is
+    # empty and cross_cov is (n, 0, d, d), (v) one block phase of the r = 6
+    # smoothed fit, (vi, vii) the edges of one row per lane (d = 32, 34),
+    # (viii) a ragged n at the largest d.
     for n, T, d in [(125, 50, 10), (2000, 50, 10), (3, 2, 4), (3, 1, 4),
-                    (125, 50, 14)]:
+                    (125, 50, 14), (4, 3, 32), (4, 3, 34), (5, 4, 48)]:
         D, O, b = smoother_system(n, T, d, gen)
         k = fs.fused_smoother_kernel(D, O, b)
         torch.cuda.synchronize()
         t = fs.fused_smoother_twin(D, O, b)
-        errs = {name: rel_err(getattr(k, name), getattr(t, name))
-                for name in ("mean", "cov", "cross_cov")}
-        ld_rel = ((k.logdet - t.logdet).abs() / t.logdet.abs()).max().item()
-        print(f"K4 n={n} T={T} d={d}: (max_abs_err, rel) {errs}, logdet "
-              f"rel {ld_rel}")
-        require(all(e[1] <= REL_TOL for e in errs.values())
-                and ld_rel <= LOGDET_RTOL,
-                f"K4 disagrees with its twin at n={n} T={T} d={d}")
-        entry["max_abs_err"] = max([entry["max_abs_err"]]
-                                   + [e[0] for e in errs.values()])
+        entry["max_abs_err"] = max(entry["max_abs_err"], k4_compare(
+            f"n={n} T={T} d={d}", k, t))
         ms = cuda_ms(lambda: fs.fused_smoother_kernel(D, O, b))
         plain_ms = cuda_ms(lambda: fs.fused_smoother_twin(D, O, b), reps=5,
                            warmup=1)
@@ -209,10 +228,30 @@ def phase_smoother_kernel(report: dict) -> None:
         # backward: three products per step
         flops = n * T * d**3 * (4 + 1 / 3 + 2) + n * (T - 1) * 6 * d**3
         b_ = bound(nbytes(D, O, b, *k), flops, "f32")
-        print(f"K4 n={n} T={T} d={d}: kernel {ms} ms, twin {plain_ms} ms, "
-              f"bound {b_['bound_ms']} ms ({b_['bound_by']})")
+        print(f"K4 n={n} T={T} d={d} ({fs.fused_smoother_warps(n, d)} "
+              f"nodes per block): kernel {ms} ms, twin {plain_ms} ms, bound "
+              f"{b_['bound_ms']} ms ({b_['bound_by']})")
         if "ms" not in entry:
             entry.update(ms=ms, plain_ms=plain_ms, library_ms=None, **b_)
+        if (n, T, d) == (125, 50, 14):
+            entry["ms_d14"] = ms
+        if (n, T, d) == (2000, 50, 10):
+            entry["ms_n2000"] = ms
+    # one node's D made indefinite: NaN for that node, the twin's outputs
+    # for the others
+    D, O, b = smoother_system(6, 5, 14, gen)
+    D[2, 3] = -torch.eye(14, device="cuda")
+    k = fs.fused_smoother_kernel(D, O, b)
+    torch.cuda.synchronize()
+    t = fs.fused_smoother_twin(D, O, b)
+    require(all(bool(torch.isnan(x[2]).all()) for x in k),
+            "K4 did not give NaN for the indefinite node")
+    keep = [0, 1, 3, 4, 5]
+    require(all(bool(torch.isfinite(x[keep]).all()) for x in k),
+            "K4's indefinite node spoiled another node")
+    k4_compare("n=6 T=5 d=14, node 2 indefinite (others)", k, t, keep)
+    print(f"K4 summary: n=125 T=50 d=10 {entry['ms']} ms, d=14 "
+          f"{entry['ms_d14']} ms, n=2000 d=10 {entry['ms_n2000']} ms")
 
 
 def fused_fit_flops(n: int, T: int, d: int, num_blocks: int,
@@ -687,7 +726,8 @@ def high_rank_model():
     return model
 
 
-def check_history(label: str, h: dict, n_iter: int, ms: float) -> None:
+def check_history(label: str, h: dict, n_iter: int, ms: float) -> float:
+    """Checks a fixed-length fit's history; returns its ms/iteration."""
     mse = h["reconstruction_error"]
     print(f"{label}: {len(h['elbo'])} iterations, {ms / len(h['elbo'])} "
           f"ms/iteration, ELBO {h['elbo'][0]} -> {h['elbo'][-1]}, MSE "
@@ -697,6 +737,7 @@ def check_history(label: str, h: dict, n_iter: int, ms: float) -> None:
             f"non-finite {label} history")
     require(mse[-1] < mse[0] and h["elbo"][-1] > h["elbo"][0],
             f"{label} did not improve its fit")
+    return ms / len(h["elbo"])
 
 
 def phase_high_rank_good(model) -> int:
@@ -728,15 +769,19 @@ def phase_high_rank_smoothed(model) -> int:
     h = vi.fit(max_iter=20, tolerance=0.0, verbose=False)
     end.record()
     end.synchronize()
-    check_history("n=2000 T=50 r=6 smoothed (warm init)", h, 20,
-                  start.elapsed_time(end))
+    K4_PATHS["r6_smoothed_ms_per_iter"] = check_history(
+        "n=2000 T=50 r=6 smoothed (warm init)", h, 20,
+        start.elapsed_time(end))
     return 20
 
 
 def phase_bench() -> dict:
     from tame_torch.scripts import bench
 
-    return bench.main(["--n-fits", "32", "--repeats", "2"])
+    res = bench.main(["--n-fits", "32", "--repeats", "2"])
+    K4_PATHS["bench_n2000_smoothed_ms_per_iter"] = res[
+        "n2000_smoothed_ms_per_iter"]
+    return res
 
 
 def mse_split(Y: torch.Tensor, X_mean: torch.Tensor, mask: torch.Tensor):
@@ -956,6 +1001,9 @@ def main() -> int:
     require(bench["spd_solve_inv"] > 0 and bench["logdet_spd"] > 0
             and bench["fused_smoother"] > 0,
             "the bench n=2000 legs did not run K1, K2 and K4")
+    k4 = report["fused_smoother"]
+    print(f"K4 n=125 d=10 {k4['ms']} ms, n=125 d=14 {k4['ms_d14']} ms, "
+          f"n=2000 d=10 {k4['ms_n2000']} ms; same run: {K4_PATHS}")
     launches = {k: sum(c[k] for c in paths) for k in wrappers}
     launches["dual_contract"] = report["dual_contract"].pop("launches")
 

@@ -53,8 +53,9 @@ class InferenceConfig:
     ``learning_rate`` damps the coordinate update:
     new = lr * closed_form + (1 - lr) * old.  ``update_mode`` is
     ``"jacobi"`` (all factors at once) or ``"block"`` (block Gauss-Seidel,
-    the default); ``"seq"`` and ``diag_mode="stats"`` are accepted here for
-    parity with :mod:`tame.config` but the port's fit does not run them yet.
+    the default); ``"seq"`` is accepted here for parity with
+    :mod:`tame.config` but the port's fit does not run it yet.
+    ``diag_mode`` is ``"exact"`` or ``"stats"`` (sufficient statistics).
     """
 
     structure: str = "full"  # "diag" | "full" | "block" (naive / good / bad)

@@ -171,9 +171,14 @@ fused_smoother(torch::Tensor D, torch::Tensor O, torch::Tensor b) {
   return {mean, cov, cross, logdet};
 }
 
-int64_t fused_smoother_smem_bytes(int64_t d) {
-  return static_cast<int64_t>(
-      tame_fused_smoother_smem_bytes(static_cast<int>(d)));
+int64_t fused_smoother_smem_bytes(int64_t d, int64_t warps) {
+  return static_cast<int64_t>(tame_fused_smoother_smem_bytes(
+      static_cast<int>(d), static_cast<int>(warps)));
+}
+
+int64_t fused_smoother_warps(int64_t n, int64_t d) {
+  TORCH_CHECK(n <= std::numeric_limits<int>::max(), "batch too large");
+  return tame_fused_smoother_warps(static_cast<int>(n), static_cast<int>(d));
 }
 
 torch::Tensor masked_contract(torch::Tensor M, torch::Tensor Z) {
@@ -255,7 +260,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fused_smoother", &fused_smoother,
         "K4: batched block-tridiagonal forward-backward smoother");
   m.def("fused_smoother_smem_bytes", &fused_smoother_smem_bytes,
-        "shared memory of one K4 block for state dimension d");
+        "shared memory of one K4 block of `warps` nodes at state dimension d");
+  m.def("fused_smoother_warps", &fused_smoother_warps,
+        "nodes per K4 block for n trajectories at state dimension d");
   m.def("spd_solve_inv", &spd_solve_inv, "K1: batched SPD solve (+ inverse)");
   m.def("logdet_spd", &logdet_spd, "K2: batched SPD log-determinant");
   m.def("fused_fit", &fused_fit, "K3: whole CAVI fit in one thread block");

@@ -1,9 +1,9 @@
 // Cholesky of one small SPD system held by one thread.
 //
-// The single device-side copy of the d x d factorization that the JAX
-// package writes five times in Pallas (tame/ops/cholesky.py
-// _chol_solve_inv_kernel and _logdet_kernel, tame/ops/fused_fit.py
-// _plane_chol_solve and _plane_logdet, tame/ops/fused_smoother.py).  With
+// The device-side copy of the d x d factorization that the JAX package
+// writes in Pallas for K1-K3 (tame/ops/cholesky.py _chol_solve_inv_kernel
+// and _logdet_kernel, tame/ops/fused_fit.py _plane_chol_solve and
+// _plane_logdet); K4 inverts by a warp-wide Gauss-Jordan sweep instead.  With
 // D a template constant every loop unrolls, so the factor lives in
 // registers.  Arithmetic order follows the JAX kernels step for step.
 //
@@ -18,7 +18,7 @@
 // Instantiated sizes: d = 2 + 2r for r = 1..5.
 #define TAME_FOR_EACH_D(X) X(4) X(6) X(8) X(10) X(12)
 
-// Largest d of the runtime-d variants (K1, K2, K4); even d only.
+// Largest d of the runtime-d variants (K1, K2) and of K4; even d only.
 constexpr int kMaxRuntimeD = 48;
 
 __host__ __device__ inline bool tame_unrolled_d(int d) {
@@ -96,20 +96,13 @@ __device__ __forceinline__ void chol_inverse_column(const float (&L)[D][D],
 // Accessors into shared memory.  PackedLower keeps one thread's lower
 // triangle, element (i, j <= i) at p[(i (i + 1) / 2 + j) * stride]: with the
 // stride equal to the threads of a block, neighbouring threads hit
-// neighbouring banks.  DenseRows is a row-major matrix of row pitch ld.
-// StridedVec is a vector with a stride.
+// neighbouring banks.  StridedVec is a vector with a stride.
 struct PackedLower {
   float* p;
   int stride;
   __device__ float& operator()(int i, int j) const {
     return p[(i * (i + 1) / 2 + j) * stride];
   }
-};
-
-struct DenseRows {
-  float* p;
-  int ld;
-  __device__ float& operator()(int i, int j) const { return p[i * ld + j]; }
 };
 
 struct StridedVec {

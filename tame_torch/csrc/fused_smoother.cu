@@ -1,360 +1,469 @@
 // K4 fused_smoother: the batched block-tridiagonal forward-backward
-// smoother, one thread block per node trajectory.
+// smoother, one warp per node trajectory.
 //
 // Replaces tame/ops/fused_smoother.py::_smoother_kernel, which puts 128
 // nodes on the TPU's lanes and walks T with every d x d entry a vector
-// plane.  At the smoothed fit's block phase (125 trajectories of T = 50,
-// d = 10) that layout would leave the card almost idle, and one thread per
-// node would spill its three live 10 x 10 matrices.  Here the parallelism
-// comes from nodes (one block each: 125 per block phase, n per Jacobi
-// sweep) and from within each d x d step:
+// plane.  On the card each node is a chain of T dependent forward steps
+// and T - 1 backward steps; the bytes, (3 d^2 + 2 d) * 4 B per node-step,
+// are far below what the memory system streams in that time, so the
+// latency of the chain is the bound.  The design shortens the chain:
 //
-//   * the node's working matrices live in shared memory (SmootherSmem,
-//     5 d^2 + 5 d + 1 floats: 2,204 B at d = 10), independent of T;
-//   * the d x d products give one output entry per thread;
-//   * S_t is factored by chol_factor<D> (chol.cuh) on thread 0, and S_t^-1
-//     is d unit-column solves, one column per thread.
+//   * one warp per node: lane i owns row i of every d x d matrix (rows i
+//     and i + 32 for 32 < d <= 48); several nodes share a block when n is
+//     large (smoother_warps), one node per block when n is about the
+//     number of SMs, so the nodes spread over the most SMs;
+//   * every loop runs to the column capacity DC, a compile-time constant
+//     (exact d up to 16, then 24, 32, 48), so it unrolls and the loads
+//     of a product issue together instead of one latency per k; for
+//     d < DC the matrices are padded (O and b with zeros, D with the
+//     identity), which leaves the d x d blocks and logdet unchanged;
+//   * the matrices other lanes read live in a per-warp slab of shared
+//     memory, read in 16-byte loads: another row's four entries are one
+//     broadcast load, the lane's own row four entries a load.  The row
+//     pitch P is the least multiple of 4 >= DC with P / 4 odd (not the odd
+//     pitch a scalar layout would take, which breaks 16-byte alignment):
+//     the 8 lanes of each quarter-warp phase of an own-row load then hit
+//     8 different 16-byte bank groups, so those loads are conflict-free
+//     too.  G_t is kept transposed so that GS G' also reads rows.  O and
+//     O' are shared by the block's warps;
+//   * each product computes the lane's output row with its accumulators
+//     in registers (float32 FMAs on the CUDA cores: TF32 would keep three
+//     digits, and the work is d^3 per step);
+//   * S_t^-1 comes from an in-place Gauss-Jordan sweep without pivoting
+//     (S_t is SPD) on the rows in registers: d pivot steps, each one
+//     shuffle of the pivot row from its lane and one row update per lane,
+//     with no step on a single thread.  The
+//     pivots are Cholesky's L_kk^2, so logdet += sum_k log(pivot_k); a
+//     pivot that is <= 0 or NaN becomes NaN, which makes that node's
+//     outputs NaN (the twin's _cholesky_nan) and leaves the others alone;
+//   * the next step's inputs are fetched ahead with cp.async into a second
+//     buffer: D_{t+1} and b_{t+1} in the forward pass, the parked S_{t-1}^-1
+//     and c_{t-1} in the backward pass, so no step waits on device memory;
+//   * the t loop holds no __syncthreads, only __syncwarp.
 //
 // Memory trick kept from the TPU kernel: the forward pass writes S_t^-1
 // into `cov` and c_t into `mean`; the backward pass reads them back and
 // overwrites them in reverse order, so there is no device scratch.
-// logdet = sum_t sum_k log(L_kk^2), accumulated over t in order.
 //
-// Bound: the latency of T dependent steps per node, each ~5 d^3 flops
-// behind four block barriers and one serial d x d factorization; the
-// output, (3 d^2 + 2 d) * 4 B per node-step, is far below what the memory
-// system streams in that time.
-//
-// d in {4, ..., 12} runs the unrolled fused_smoother_kernel<D>.  Every other
-// even d up to kMaxRuntimeD (the JAX package fits an r = 6 model, d = 14,
-// through its scan smoother) runs fused_smoother_rt_kernel: the same steps
-// with loops not unrolled, the same 5 d^2 + 5 d + 1 floats as dynamic
-// shared memory (4.2 KB at d = 14, 47 KB at d = 48), threads striding over
-// the d^2 entries (min(d^2, 1024) threads, in whole warps), the factor
-// in place in shared memory on thread 0 and each S_t^-1 column solved in
-// place in its column of Sinv.
+// One kernel covers every even d from 4 to kMaxRuntimeD (48), templated on
+// the column capacity DC >= d.
 #include "chol.cuh"
 #include "kernels.h"
 
 namespace {
 
-template <int D>
-struct SmootherSmem {
-  float O[D][D];        // coupling block
-  float Sinv[D][D];     // S_t^-1
-  float M[D][D];        // O' S_{t-1}^-1 (forward), G_t = S_t^-1 O (backward)
-  float S[D][D];        // S_t, then its factor (forward); G_t Sig_{t+1} (backward)
-  float Sig[D][D];      // Sig_{t+1} (backward)
-  float c[D];           // c_{t-1} (forward), c_t (backward)
-  float c_new[D];       // c_t (forward)
-  float mu[D];          // mu_{t+1}, then mu_t (backward)
-  float rhs[D];         // c_t - O mu_{t+1} (backward)
-  float inv_diag[D];    // 1 / L_kk of S_t
-  float logdet;
-};
+constexpr int kMaxWarps = 4;             // nodes per block
+constexpr int kSmSpread = 132;           // SMs of an H100 SXM
+constexpr size_t kStaticSmemLimit = 48 * 1024;
+constexpr size_t kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
+constexpr unsigned kFull = 0xffffffffu;
 
-// One thread per entry of a d x d product, in whole warps.
-template <int D>
-struct SmootherCfg {
-  static constexpr int kThreads = ((D * D + 31) / 32) * 32;
-};
+// Column capacity of d: exact up to 16, then 24, 32, 48.
+__host__ __device__ constexpr int smoother_capacity(int d) {
+  return d <= 16 ? d : (d <= 24 ? 24 : (d <= 32 ? 32 : 48));
+}
+// Row pitch at capacity c: the least p >= c with p % 8 == 4.
+__host__ __device__ constexpr int smoother_pitch(int c) {
+  return (c + 3) / 8 * 8 + 4;
+}
+// A vector's floats at capacity c: c rounded up to 4.
+__host__ __device__ constexpr int smoother_vec(int c) { return (c + 3) / 4 * 4; }
 
-template <int D>
-__global__ void __launch_bounds__(SmootherCfg<D>::kThreads)
+// Floats of one block at capacity c: O and O' (c x pitch each), then per
+// warp four c x pitch matrices (A, G', the two input buffers) and five
+// vectors (c_t, mu, rhs, the two vector buffers).
+__host__ __device__ constexpr int smoother_mat_floats(int c) {
+  return c * smoother_pitch(c);
+}
+__host__ __device__ constexpr int smoother_warp_floats(int c) {
+  return 4 * smoother_mat_floats(c) + 5 * smoother_vec(c);
+}
+__host__ __device__ inline size_t smoother_smem(int d, int warps) {
+  const int c = smoother_capacity(d);
+  return sizeof(float) *
+         (2 * smoother_mat_floats(c) + warps * smoother_warp_floats(c));
+}
+
+// Nodes per block: one per block while n <= 132 (each node on its own SM),
+// then up to four, as shared memory allows.
+inline int smoother_warps(int n, int d) {
+  int w = (n + kSmSpread - 1) / kSmSpread;
+  w = w < 1 ? 1 : (w > kMaxWarps ? kMaxWarps : w);
+  while (w > 1 && smoother_smem(d, w) > kMaxSmemBytes) --w;
+  return w;
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Fetch the dense d x d block src into the top-left of a slab matrix of
+// pitch P, and a d-vector, two floats a copy (d is even), coalesced.
+__device__ __forceinline__ void fetch_mat(float* dst, const float* src, int d,
+                                          int P, int lane) {
+  for (int e = 2 * lane; e < d * d; e += 64)
+    cp_async8(dst + (e / d) * P + e % d, src + e);
+}
+__device__ __forceinline__ void fetch_vec(float* dst, const float* src, int d,
+                                          int lane) {
+  for (int e = 2 * lane; e < d; e += 64) cp_async8(dst + e, src + e);
+}
+
+// Store the lane's row (its first d entries) to dst, two floats at a time
+// (d is even, so every row starts 8-byte aligned).
+template <int DC>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[DC],
+                                          int d, float sign) {
+#pragma unroll
+  for (int j = 0; j < DC; j += 2)
+    if (j < d)
+      *reinterpret_cast<float2*>(dst + j) = make_float2(sign * v[j],
+                                                        sign * v[j + 1]);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// out[r][j] += sum_k a[r][k] B[k][j]: a is the lane's own rows in
+// registers, B's rows are read as 16-byte broadcasts.
+template <int DC, int R>
+__device__ __forceinline__ void row_product_add(const float (&a)[R][DC],
+                                                const float* B,
+                                                float (&out)[R][DC]) {
+  constexpr int P = smoother_pitch(DC);
+#pragma unroll
+  for (int k = 0; k < DC; ++k)
+#pragma unroll
+    for (int q = 0; q < DC; q += 4) {
+      const float4 bv = ld4(B + k * P + q);
+      const float bq[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (q + u < DC) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            out[r][q + u] = fmaf(a[r][k], bq[u], out[r][q + u]);
+        }
+    }
+}
+
+template <int DC, int R>
+__device__ __forceinline__ void row_product(const float (&a)[R][DC],
+                                            const float* B,
+                                            float (&out)[R][DC]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) out[r][j] = 0.f;
+  row_product_add<DC, R>(a, B, out);
+}
+
+// sum_k a[r][k] x[k] with x read in 16-byte broadcasts.
+template <int DC, int R>
+__device__ __forceinline__ float row_dot(const float (&a)[R][DC], int r,
+                                         const float* x) {
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < DC; q += 4) {
+    const float4 xv = ld4(x + q);
+    const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (q + u < DC) acc = fmaf(a[r][q + u], xq[u], acc);
+  }
+  return acc;
+}
+
+// The lane's own rows of a slab matrix in 16-byte loads (zeros for a row
+// past the capacity).
+template <int DC, int R>
+__device__ __forceinline__ void load_rows(const float* src, int lane,
+                                          float (&a)[R][DC]) {
+  constexpr int P = smoother_pitch(DC);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+#pragma unroll
+    for (int q = 0; q < DC; q += 4) {
+      const float4 v = i < DC ? ld4(src + i * P + q)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (q + u < DC) a[r][q + u] = vq[u];
+    }
+  }
+}
+
+template <int DC, int R>
+__device__ __forceinline__ void store_rows(float* dst, int lane,
+                                           const float (&a)[R][DC]) {
+  constexpr int P = smoother_pitch(DC);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (lane + 32 * r < DC) {
+#pragma unroll
+      for (int j = 0; j < DC; ++j) dst[(lane + 32 * r) * P + j] = a[r][j];
+    }
+}
+
+// The transpose: column i of dst gets the lane's row i (for a fixed j the
+// lanes write consecutive floats).
+template <int DC, int R>
+__device__ __forceinline__ void store_cols(float* dst, int lane,
+                                           const float (&a)[R][DC]) {
+  constexpr int P = smoother_pitch(DC);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (lane + 32 * r < DC) {
+#pragma unroll
+      for (int j = 0; j < DC; ++j) dst[j * P + lane + 32 * r] = a[r][j];
+    }
+}
+
+// In-place Gauss-Jordan inverse of the SPD matrix whose rows the lanes
+// hold in a (row k in lane k % 32, slot k / 32); returns sum_k
+// log(pivot_k).  A pivot that is not positive becomes NaN, which makes
+// every entry NaN.
+template <int DC, int R>
+__device__ __forceinline__ float gauss_jordan(float (&a)[R][DC], int lane) {
+  float logdet = 0.f;
+#pragma unroll
+  for (int k = 0; k < DC; ++k) {
+    float pr[DC];
+#pragma unroll
+    for (int j = 0; j < DC; ++j) pr[j] = __shfl_sync(kFull, a[k / 32][j], k % 32);
+    float piv = pr[k];
+    if (!(piv > 0.f)) piv = __int_as_float(0x7fc00000);
+    logdet += logf(piv);
+    const float inv = __frcp_rn(piv);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool pivot_row = lane + 32 * r == k;
+      const float g = a[r][k] * inv;
+#pragma unroll
+      for (int j = 0; j < DC; ++j)
+        a[r][j] = pivot_row ? pr[j] * inv : fmaf(-g, pr[j], a[r][j]);
+      a[r][k] = pivot_row ? inv : -g;
+    }
+  }
+  return logdet;
+}
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kMaxWarps)
 fused_smoother_kernel(const float* __restrict__ Dm, const float* __restrict__ O,
                       const float* __restrict__ b, float* __restrict__ mean,
                       float* __restrict__ cov, float* __restrict__ cross,
-                      float* __restrict__ logdet_out, int T) {
-  constexpr int DD = D * D;
-  __shared__ SmootherSmem<D> s;
-  const int tid = threadIdx.x;
-  const bool entry = tid < DD;      // owns entry (i, j) of a d x d product
-  const bool row = tid < D;         // owns row i of a d-vector
-  const int i = tid / D, j = tid % D;
-  const size_t node = blockIdx.x;
-  const float* Dn = Dm + node * T * DD;
-  const float* bn = b + node * T * D;
-  float* mn = mean + node * T * D;
-  float* cn = cov + node * T * DD;
-  float* xn = cross + node * (T - 1) * DD;
-
-  if (entry) {
-    s.O[i][j] = O[tid];
-    s.S[i][j] = Dn[tid];                        // S_0 = D_0
-  }
-  if (row) {
-    s.c[tid] = bn[tid];                         // c_0 = b_0
-    mn[tid] = bn[tid];
-  }
-  if (tid == 0) s.logdet = 0.f;
-  __syncthreads();
-
-  // ---- forward elimination: S_t^-1 -> cov[t], c_t -> mean[t] ----------
-  for (int t = 0; t < T; ++t) {
-    if (t > 0) {
-      if (entry) {                              // M = O' S_{t-1}^-1
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) acc += s.O[k][i] * s.Sinv[k][j];
-        s.M[i][j] = acc;
-      }
-      __syncthreads();
-      if (entry) {                              // S_t = D_t - M O
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) acc += s.M[i][k] * s.O[k][j];
-        s.S[i][j] = Dn[static_cast<size_t>(t) * DD + tid] - acc;
-      }
-      if (row) {                                // c_t = b_t - M c_{t-1}
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) acc += s.M[tid][k] * s.c[k];
-        const float v = bn[static_cast<size_t>(t) * D + tid] - acc;
-        s.c_new[tid] = v;
-        mn[static_cast<size_t>(t) * D + tid] = v;
-      }
-      __syncthreads();
-      if (row) s.c[tid] = s.c_new[tid];
-    }
-    if (tid == 0) {                             // factor S_t in registers
-      float A[D][D], inv_diag[D];
-#pragma unroll
-      for (int r = 0; r < D; ++r)
-#pragma unroll
-        for (int q = 0; q <= r; ++q) A[r][q] = s.S[r][q];
-      s.logdet += chol_factor<D>(A, inv_diag);
-#pragma unroll
-      for (int r = 0; r < D; ++r) {
-        s.inv_diag[r] = inv_diag[r];
-#pragma unroll
-        for (int q = 0; q <= r; ++q) s.S[r][q] = A[r][q];
-      }
-    }
-    __syncthreads();
-    if (row) {                                  // column tid of S_t^-1
-      float col[D];
-      chol_inverse_column<D>(s.S, s.inv_diag, tid, col);
-#pragma unroll
-      for (int r = 0; r < D; ++r) {
-        s.Sinv[r][tid] = col[r];
-        cn[static_cast<size_t>(t) * DD + r * D + tid] = col[r];
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- backward substitution (overwrites mean/cov in reverse) ----------
-  // t = T-1: mu = S^-1 c, Sig = S^-1 (already in cov[T-1]).
-  if (row) {
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < D; ++k) acc += s.Sinv[tid][k] * s.c[k];
-    s.mu[tid] = acc;
-    mn[static_cast<size_t>(T - 1) * D + tid] = acc;
-  }
-  if (entry) s.Sig[i][j] = s.Sinv[i][j];
-  __syncthreads();
-  for (int t = T - 2; t >= 0; --t) {
-    if (entry) s.Sinv[i][j] = cn[static_cast<size_t>(t) * DD + tid];
-    if (row) s.c[tid] = mn[static_cast<size_t>(t) * D + tid];
-    __syncthreads();
-    if (row) {                                  // rhs = c_t - O mu_{t+1}
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc += s.O[tid][k] * s.mu[k];
-      s.rhs[tid] = s.c[tid] - acc;
-    }
-    if (entry) {                                // G = S_t^-1 O
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc += s.Sinv[i][k] * s.O[k][j];
-      s.M[i][j] = acc;
-    }
-    __syncthreads();
-    if (row) {                                  // mu_t = S_t^-1 rhs
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc += s.Sinv[tid][k] * s.rhs[k];
-      s.mu[tid] = acc;
-      mn[static_cast<size_t>(t) * D + tid] = acc;
-    }
-    if (entry) {                                // GS = G Sig_{t+1}
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc += s.M[i][k] * s.Sig[k][j];
-      s.S[i][j] = acc;
-      xn[static_cast<size_t>(t) * DD + tid] = -acc;
-    }
-    __syncthreads();
-    if (entry) {                                // Sig_t = S_t^-1 + GS G'
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc += s.S[i][k] * s.M[j][k];
-      const float v = s.Sinv[i][j] + acc;
-      s.Sig[i][j] = v;
-      cn[static_cast<size_t>(t) * DD + tid] = v;
-    }
-    __syncthreads();
-  }
-  if (tid == 0) logdet_out[node] = s.logdet;
-}
-
-// Shared floats of one runtime-d block, in SmootherSmem's order.
-__host__ __device__ inline int smoother_rt_floats(int d) {
-  return 5 * d * d + 5 * d + 1;
-}
-
-__host__ __device__ inline int smoother_rt_threads(int d) {
-  const int warps = (d * d + 31) / 32;
-  return warps < 32 ? warps * 32 : 1024;
-}
-
-// fused_smoother_kernel<D> for a runtime d; the phases and their barriers
-// are the same, each "one thread per entry / per row" becomes a loop that
-// strides over the entries / rows.
-__global__ void __launch_bounds__(1024)
-fused_smoother_rt_kernel(const float* __restrict__ Dm,
-                         const float* __restrict__ O,
-                         const float* __restrict__ b, float* __restrict__ mean,
-                         float* __restrict__ cov, float* __restrict__ cross,
-                         float* __restrict__ logdet_out, int T, int d) {
-  extern __shared__ float smem_sm[];
+                      float* __restrict__ logdet_out, int n, int T, int d) {
+  constexpr int R = (DC + 31) / 32;
+  constexpr int P = smoother_pitch(DC), mat = smoother_mat_floats(DC);
+  constexpr int V = smoother_vec(DC);
+  extern __shared__ __align__(16) float smem_k4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dd = d * d;
-  float* sO = smem_sm;
-  float* sSinv = sO + dd;
-  float* sM = sSinv + dd;
-  float* sS = sM + dd;
-  float* sSig = sS + dd;
-  float* sc = sSig + dd;
-  float* sc_new = sc + d;
-  float* smu = sc_new + d;
-  float* srhs = smu + d;
-  float* sinv_diag = srhs + d;
-  float* slogdet = sinv_diag + d;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t node = blockIdx.x;
+  float* sO = smem_k4;   // O, zero-padded
+  float* sOt = sO + mat;  // O'
+  for (int e = threadIdx.x; e < mat; e += blockDim.x) {
+    const int i = e / P, j = e % P;
+    sO[e] = (i < d && j < d) ? O[i * d + j] : 0.f;
+    sOt[e] = (i < d && j < d) ? O[j * d + i] : 0.f;
+  }
+  float* A = sOt + mat + warp * smoother_warp_floats(DC);  // S_t^-1; Sig
+  float* Gt = A + mat;         // G_t' (backward)
+  float* buf = Gt + mat;       // two matrices: D_t or parked S_t^-1
+  float* c = buf + 2 * mat;    // c_t
+  float* mu = c + V;           // mu_{t+1}, then mu_t
+  float* rhs = mu + V;         // c_t - O mu_{t+1}
+  float* vbuf = rhs + V;       // two vectors: b_t or parked c_t
+  // The slab starts at zero and the input buffers' padding at the
+  // identity; the fetches fill only the top-left d x d block.
+  for (int e = lane; e < smoother_warp_floats(DC); e += 32) A[e] = 0.f;
+  __syncwarp();
+  for (int i = d + lane; i < DC; i += 32) {
+    buf[i * P + i] = 1.f;
+    buf[mat + i * P + i] = 1.f;
+  }
+  __syncthreads();  // once, before any node's t loop
+
+  const size_t node = static_cast<size_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (node >= static_cast<size_t>(n)) return;
   const float* Dn = Dm + node * T * dd;
   const float* bn = b + node * T * d;
   float* mn = mean + node * T * d;
   float* cn = cov + node * T * dd;
   float* xn = cross + node * (T - 1) * dd;
-
-  for (int e = tid; e < dd; e += nt) {
-    sO[e] = O[e];
-    sS[e] = Dn[e];                              // S_0 = D_0
-  }
-  for (int r = tid; r < d; r += nt) {
-    sc[r] = bn[r];                              // c_0 = b_0
-    mn[r] = bn[r];
-  }
-  if (tid == 0) *slogdet = 0.f;
-  __syncthreads();
+  float s[R][DC], m[R][DC];  // the lane's rows of the working matrices
+  float logdet = 0.f;
 
   // ---- forward elimination: S_t^-1 -> cov[t], c_t -> mean[t] ----------
+  fetch_mat(buf, Dn, d, P, lane);
+  fetch_vec(vbuf, bn, d, lane);
+  cp_async_commit();
   for (int t = 0; t < T; ++t) {
-    if (t > 0) {
-      for (int e = tid; e < dd; e += nt) {      // M = O' S_{t-1}^-1
-        const int i = e / d, j = e % d;
-        float acc = 0.f;
-        for (int k = 0; k < d; ++k) acc += sO[k * d + i] * sSinv[k * d + j];
-        sM[e] = acc;
-      }
-      __syncthreads();
-      for (int e = tid; e < dd; e += nt) {      // S_t = D_t - M O
-        const int i = e / d, j = e % d;
-        float acc = 0.f;
-        for (int k = 0; k < d; ++k) acc += sM[i * d + k] * sO[k * d + j];
-        sS[e] = Dn[static_cast<size_t>(t) * dd + e] - acc;
-      }
-      for (int r = tid; r < d; r += nt) {       // c_t = b_t - M c_{t-1}
-        float acc = 0.f;
-        for (int k = 0; k < d; ++k) acc += sM[r * d + k] * sc[k];
-        const float v = bn[static_cast<size_t>(t) * d + r] - acc;
-        sc_new[r] = v;
-        mn[static_cast<size_t>(t) * d + r] = v;
-      }
-      __syncthreads();
-      for (int r = tid; r < d; r += nt) sc[r] = sc_new[r];
+    const int sel = t & 1;
+    if (t + 1 < T) {  // fetch step t + 1's inputs while step t computes
+      fetch_mat(buf + (sel ^ 1) * mat, Dn + static_cast<size_t>(t + 1) * dd,
+                d, P, lane);
+      fetch_vec(vbuf + (sel ^ 1) * V, bn + static_cast<size_t>(t + 1) * d,
+                d, lane);
     }
-    if (tid == 0)                               // factor S_t in place
-      *slogdet += chol_factor_rt(DenseRows{sS, d}, sinv_diag, d);
-    __syncthreads();
-    for (int j = tid; j < d; j += nt)           // column j of S_t^-1
-      chol_inverse_column_rt(DenseRows{sS, d}, sinv_diag, j,
-                             StridedVec{sSinv + j, d}, d);
-    __syncthreads();
-    for (int e = tid; e < dd; e += nt)
-      cn[static_cast<size_t>(t) * dd + e] = sSinv[e];
+    cp_async_commit();
+    cp_async_wait_one();  // step t's inputs have landed
+    __syncwarp();
+    const float* Dt = buf + sel * mat;
+    const float* bt = vbuf + sel * V;
+    float cv[R];
+    load_rows<DC, R>(Dt, lane, s);
+    if (t == 0) {  // S_0 = D_0, c_0 = b_0
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        cv[r] = lane + 32 * r < DC ? bt[lane + 32 * r] : 0.f;
+    } else {
+      // M = O' S_{t-1}^-1;  c_t = b_t - M c_{t-1};  S_t = D_t - M O
+      float ot[R][DC];
+      load_rows<DC, R>(sOt, lane, ot);
+      row_product<DC, R>(ot, A, m);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = lane + 32 * r;
+        cv[r] = i < DC ? bt[i] - row_dot<DC, R>(m, r, c) : 0.f;
+#pragma unroll
+        for (int j = 0; j < DC; ++j) s[r][j] = -s[r][j];
+      }
+      row_product_add<DC, R>(m, sO, s);  // M O - D_t, accumulated on -D_t
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) s[r][j] = -s[r][j];
+    }
+    __syncwarp();  // every lane has read S_{t-1}^-1 and c_{t-1}
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+      if (i < DC) c[i] = cv[r];
+      if (i < d) mn[static_cast<size_t>(t) * d + i] = cv[r];
+    }
+    logdet += gauss_jordan<DC, R>(s, lane);
+    store_rows<DC, R>(A, lane, s);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (lane + 32 * r < d)
+        store_row<DC>(cn + static_cast<size_t>(t) * dd + (lane + 32 * r) * d,
+                      s[r], d, 1.f);
   }
 
   // ---- backward substitution (overwrites mean/cov in reverse) ----------
-  // t = T-1: mu = S^-1 c, Sig = S^-1 (already in cov[T-1]).
-  for (int r = tid; r < d; r += nt) {
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) acc += sSinv[r * d + k] * sc[k];
-    smu[r] = acc;
-    mn[static_cast<size_t>(T - 1) * d + r] = acc;
+  // t = T-1: mu = S^-1 c, Sig = S^-1 (in A and already in cov[T-1]).
+  if (T >= 2) {  // the parked S_{T-2}^-1 and c_{T-2}
+    fetch_mat(buf, cn + static_cast<size_t>(T - 2) * dd, d, P, lane);
+    fetch_vec(vbuf, mn + static_cast<size_t>(T - 2) * d, d, lane);
   }
-  for (int e = tid; e < dd; e += nt) sSig[e] = sSinv[e];
-  __syncthreads();
+  cp_async_commit();
+  __syncwarp();  // c_{T-1} is complete
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    const float v = row_dot<DC, R>(s, r, c);
+    if (i < DC) mu[i] = v;
+    if (i < d) mn[static_cast<size_t>(T - 1) * d + i] = v;
+  }
   for (int t = T - 2; t >= 0; --t) {
-    for (int e = tid; e < dd; e += nt)
-      sSinv[e] = cn[static_cast<size_t>(t) * dd + e];
-    for (int r = tid; r < d; r += nt)
-      sc[r] = mn[static_cast<size_t>(t) * d + r];
-    __syncthreads();
-    for (int r = tid; r < d; r += nt) {         // rhs = c_t - O mu_{t+1}
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc += sO[r * d + k] * smu[k];
-      srhs[r] = sc[r] - acc;
+    const int sel = (T - 2 - t) & 1;
+    if (t >= 1) {  // fetch step t - 1's parked inputs
+      fetch_mat(buf + (sel ^ 1) * mat, cn + static_cast<size_t>(t - 1) * dd,
+                d, P, lane);
+      fetch_vec(vbuf + (sel ^ 1) * V, mn + static_cast<size_t>(t - 1) * d,
+                d, lane);
     }
-    for (int e = tid; e < dd; e += nt) {        // G = S_t^-1 O
-      const int i = e / d, j = e % d;
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc += sSinv[i * d + k] * sO[k * d + j];
-      sM[e] = acc;
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncwarp();  // S_t^-1, c_t, Sig_{t+1} and mu_{t+1} are in place
+    const float* ct = vbuf + sel * V;
+    load_rows<DC, R>(buf + sel * mat, lane, s);  // S_t^-1
+    // rhs = c_t - O mu_{t+1};  G = S_t^-1 O, kept as G'
+    {
+      float o[R][DC];
+      load_rows<DC, R>(sO, lane, o);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = lane + 32 * r;
+        const float v = row_dot<DC, R>(o, r, mu);
+        if (i < DC) rhs[i] = ct[i] - v;
+      }
     }
-    __syncthreads();
-    for (int r = tid; r < d; r += nt) {         // mu_t = S_t^-1 rhs
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc += sSinv[r * d + k] * srhs[k];
-      smu[r] = acc;
-      mn[static_cast<size_t>(t) * d + r] = acc;
+    row_product<DC, R>(s, sO, m);
+    store_cols<DC, R>(Gt, lane, m);
+    __syncwarp();  // rhs and G' are complete
+    // mu_t = S_t^-1 rhs;  GS = G Sig_{t+1};  Sig_t = S_t^-1 + GS G'
+    float mv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) mv[r] = row_dot<DC, R>(s, r, rhs);
+    float gs[R][DC];
+    row_product<DC, R>(m, A, gs);
+    row_product_add<DC, R>(gs, Gt, s);
+    __syncwarp();  // every lane is done with Sig_{t+1}, mu_{t+1} and G'
+    store_rows<DC, R>(A, lane, s);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+      if (i < DC) mu[i] = mv[r];
+      if (i < d) {
+        mn[static_cast<size_t>(t) * d + i] = mv[r];
+        store_row<DC>(cn + static_cast<size_t>(t) * dd + i * d, s[r], d, 1.f);
+        store_row<DC>(xn + static_cast<size_t>(t) * dd + i * d, gs[r], d,
+                      -1.f);
+      }
     }
-    for (int e = tid; e < dd; e += nt) {        // GS = G Sig_{t+1}
-      const int i = e / d, j = e % d;
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc += sM[i * d + k] * sSig[k * d + j];
-      sS[e] = acc;
-      xn[static_cast<size_t>(t) * dd + e] = -acc;
-    }
-    __syncthreads();
-    for (int e = tid; e < dd; e += nt) {        // Sig_t = S_t^-1 + GS G'
-      const int i = e / d, j = e % d;
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc += sS[i * d + k] * sM[j * d + k];
-      const float v = sSinv[e] + acc;
-      sSig[e] = v;
-      cn[static_cast<size_t>(t) * dd + e] = v;
-    }
-    __syncthreads();
   }
-  if (tid == 0) logdet_out[node] = *slogdet;
+  if (lane == 0) logdet_out[node] = logdet;
+}
+
+// The column capacities instantiated.
+#define TAME_FOR_EACH_DC(X) \
+  X(4) X(6) X(8) X(10) X(12) X(14) X(16) X(24) X(32) X(48)
+
+inline bool smoother_supported_d(int d) {
+  return d >= 4 && d <= kMaxRuntimeD && d % 2 == 0;
+}
+
+template <int DC>
+cudaError_t launch_smoother(const float* D, const float* O, const float* b,
+                            float* mean, float* cov, float* cross,
+                            float* logdet, int n, int T, int d,
+                            cudaStream_t stream) {
+  const int warps = smoother_warps(n, d);
+  const size_t smem = smoother_smem(d, warps);
+  if (smem > kStaticSmemLimit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_smoother_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (n + warps - 1) / warps;
+  fused_smoother_kernel<DC><<<blocks, 32 * warps, smem, stream>>>(
+      D, O, b, mean, cov, cross, logdet, n, T, d);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-size_t tame_fused_smoother_smem_bytes(int d) {
-  if (tame_runtime_d(d)) return sizeof(float) * smoother_rt_floats(d);
-  switch (d) {
-#define TAME_CASE(DD) \
-  case DD:            \
-    return sizeof(SmootherSmem<DD>);
-    TAME_FOR_EACH_D(TAME_CASE)
-#undef TAME_CASE
-    default:
-      return 0;
-  }
+size_t tame_fused_smoother_smem_bytes(int d, int warps) {
+  if (!smoother_supported_d(d) || warps < 1 || warps > kMaxWarps) return 0;
+  return smoother_smem(d, warps);
+}
+
+int tame_fused_smoother_warps(int n, int d) {
+  return smoother_supported_d(d) ? smoother_warps(n, d) : 0;
 }
 
 cudaError_t tame_fused_smoother(const float* D, const float* O, const float* b,
@@ -362,25 +471,15 @@ cudaError_t tame_fused_smoother(const float* D, const float* O, const float* b,
                                 float* logdet, int n, int T, int d,
                                 cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
-  if (T < 1) return cudaErrorInvalidValue;
-  if (tame_runtime_d(d)) {
-    // at most 47 KB (d = 48): under the 48 KB a block gets without opting in
-    fused_smoother_rt_kernel<<<n, smoother_rt_threads(d),
-                               sizeof(float) * smoother_rt_floats(d),
-                               stream>>>(D, O, b, mean, cov, cross, logdet, T,
-                                         d);
-    return cudaGetLastError();
-  }
-  switch (d) {
-#define TAME_CASE(DD)                                                      \
-  case DD:                                                                 \
-    fused_smoother_kernel<DD><<<n, SmootherCfg<DD>::kThreads, 0, stream>>>( \
-        D, O, b, mean, cov, cross, logdet, T);                             \
-    break;
-    TAME_FOR_EACH_D(TAME_CASE)
+  if (T < 1 || !smoother_supported_d(d)) return cudaErrorInvalidValue;
+  switch (smoother_capacity(d)) {
+#define TAME_CASE(DC)                                                       \
+  case DC:                                                                  \
+    return launch_smoother<DC>(D, O, b, mean, cov, cross, logdet, n, T, d, \
+                               stream);
+    TAME_FOR_EACH_DC(TAME_CASE)
 #undef TAME_CASE
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }

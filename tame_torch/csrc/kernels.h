@@ -2,8 +2,9 @@
 // sizes only, so the .cu files never include PyTorch's headers; the one
 // binding file (binding.cpp) checks tensors and calls these.  Each returns
 // cudaGetLastError() after its launch (cudaErrorInvalidValue for a size no
-// kernel takes).  K1, K2 and K4 take d in {4, ..., 12} unrolled and every
-// other even d up to 48 in a runtime-d kernel.
+// kernel takes).  K1 and K2 take d in {4, ..., 12} unrolled and every
+// other even d up to 48 in a runtime-d kernel; K4 takes every even d from
+// 4 to 48 in one design.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,18 +47,22 @@ size_t tame_fused_fit_smem_bytes(int n, int T, int d, int num_blocks);
 cudaError_t tame_fused_fit(const FusedFitArgs& args, int d,
                            cudaStream_t stream);
 
-// K4: batched block-tridiagonal forward-backward smoother, one thread block
-// per node.  D (n, T, d, d) SPD diagonal blocks, O (d, d) coupling, b (n, T,
-// d); out mean (n, T, d), cov (n, T, d, d), cross (n, T-1, d, d), logdet
-// (n,).  float32, row-major.
+// K4: batched block-tridiagonal forward-backward smoother, one warp per
+// node, every even d from 4 to 48.  D (n, T, d, d) SPD diagonal blocks, O
+// (d, d) coupling, b (n, T, d); out mean (n, T, d), cov (n, T, d, d), cross
+// (n, T-1, d, d), logdet (n,).  float32, row-major.
 cudaError_t tame_fused_smoother(const float* D, const float* O, const float* b,
                                 float* mean, float* cov, float* cross,
                                 float* logdet, int n, int T, int d,
                                 cudaStream_t stream);
 
-// Shared memory of one K4 block (bytes): static for d in {4, ..., 12},
-// dynamic for the runtime-d kernel (even d up to 48); 0 for any other d.
-size_t tame_fused_smoother_smem_bytes(int d);
+// Dynamic shared memory of one K4 block holding `warps` nodes (bytes); 0
+// for a d or a warp count K4 does not take.
+size_t tame_fused_smoother_smem_bytes(int d, int warps);
+
+// Nodes per K4 block for n trajectories at state dimension d (0 for a d
+// K4 does not take).
+int tame_fused_smoother_warps(int n, int d);
 
 // K5: out[i, t, k] = sum_j M[t, i, j] bf16(Z[j, t, k]).  M (T, bs_pad,
 // n_pad) int8 with n_pad % 16 == 0 and n <= n_pad; Z (n, T, K) float32;

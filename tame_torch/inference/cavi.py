@@ -989,10 +989,11 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     (:mod:`tame_torch.ops.masked_contract`, its twin on the CPU).
 
     ``fused`` selects K3 (:mod:`tame_torch.ops.fused_fit`): ``"auto"`` uses
-    it exactly when ``Y`` is on a CUDA device and
+    it exactly when ``Y`` is on a CUDA device,
     :func:`~tame_torch.ops.fused_fit.fused_fit_supported` holds (never
-    under a mask); ``True`` forces it (its plain twin on the CPU) and
-    raises outside the envelope; ``False`` disables it.
+    under a mask) and ``TAME_DISABLE_FUSED_FIT`` is unset; ``True`` forces
+    it (its plain twin on the CPU) unless that switch is set, and raises
+    outside the envelope; ``False`` disables it.
     ``carry_elbo``/``carry_patience`` seed the stopping rule from a
     previous segment's ``last_elbo``/``pat_count``.
     """
@@ -1034,7 +1035,10 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
                 "fused=True requires update_mode 'jacobi' or 'block', "
                 "diag_mode='exact', mixed_precision=False, elbo_every=1, "
                 "d in (4, 6, 8, 10, 12) and a shared-memory-sized problem")
-        if fused is True or (supported and Y.is_cuda):
+        # TAME_DISABLE_FUSED_FIT (any non-empty value) keeps K3 off, as in
+        # the JAX package, under fused=True too
+        disabled = bool(os.environ.get("TAME_DISABLE_FUSED_FIT"))
+        if not disabled and (fused is True or (supported and Y.is_cuda)):
             out = fused_fit.fused_fit(
                 Y, params.R_inv, params.Sigma0, params.Q, params.Phi,
                 init.X_mean, init.X_cov, max_iter, learning_rate, tolerance,

@@ -2,10 +2,11 @@
 (counterpart of :mod:`tame.inference.engine`).
 
 Same constructor keywords, ``fit(max_iter, tolerance, verbose,
-check_every)`` returning a ``{'elbo': [...], 'reconstruction_error': [...]}``
-history, ``X_mean``/``X_cov`` attributes and ``get_*`` accessors.  The
-engine is an ``nn.Module`` whose buffers are the variational state, kept on
-the device of the model's ``Y``.
+check_every, checkpoint_every, ckpt_dir, resume)`` returning a
+``{'elbo': [...], 'reconstruction_error': [...]}`` history,
+``X_mean``/``X_cov`` attributes and ``get_*`` accessors.  The engine is an
+``nn.Module`` whose buffers are the variational state, kept on the device
+of the model's ``Y``.
 """
 
 from __future__ import annotations
@@ -106,10 +107,16 @@ class TemporalAMECaviVI(torch.nn.Module):
         return cls(model, **kwargs)
 
     def fit(self, max_iter: int = 100, tolerance: float = 1e-4,
-            verbose: bool = True, check_every: int = 10
-            ) -> Dict[str, List[float]]:
+            verbose: bool = True, check_every: int = 10,
+            checkpoint_every: Optional[int] = None, ckpt_dir=None,
+            resume: bool = False) -> Dict[str, List[float]]:
         """Run CAVI to convergence from the current state; the history
-        grows by the iterations run."""
+        grows by the iterations run.  ``checkpoint_every``, ``ckpt_dir``
+        and ``resume`` keep the JAX engine's keywords and defaults, but
+        checkpointed fits are not ported yet and raise."""
+        if checkpoint_every or ckpt_dir is not None or resume:
+            raise NotImplementedError(
+                "checkpointed CAVI fits are not ported yet")
         if verbose:
             print(f"Starting {self.__class__.__name__} optimization...")
             print("=" * 60)

@@ -275,7 +275,9 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     ``Y`` (which raises outside :func:`fused_smoother_supported`), its
     plain twin on a CPU one.  ``fused`` keeps the JAX keyword and is only
     checked: ``True`` raises up front outside the envelope and together
-    with ``smoother="parallel"``.  ``smoother``: ``"auto"``/``"sequential"``.
+    with ``smoother="parallel"``.  ``TAME_DISABLE_FUSED_FIT``, which sends
+    the JAX fit to its scan smoother, is not read here: the smoothed fit
+    always runs K4 on the card.  ``smoother``: ``"auto"``/``"sequential"``.
     ``update_mode``: ``"jacobi"`` (:func:`smoothed_step`), ``"block"``
     (:func:`smoothed_step_block`, ``num_blocks`` defaulting to the largest
     divisor of n that is <= 16) or ``"auto"`` (block once n >= 256).

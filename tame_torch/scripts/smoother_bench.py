@@ -39,7 +39,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     g = torch.Generator(device=device).manual_seed(0)
     A = torch.randn(n, T, d, d, device=device, generator=g) * 0.3
     D = A @ A.transpose(-1, -2) + 2.0 * torch.eye(d, device=device)
-    O = 0.25 * torch.randn(d, d, device=device, generator=g)
+    # coupling scaled so that its norm, and S_t's margin from 0, stay
+    # those of d = 10 at any d (the systems stay positive definite)
+    O = 0.25 * (10 / d) ** 0.5 * torch.randn(d, d, device=device,
+                                             generator=g)
     b = torch.randn(n, T, d, device=device, generator=g)
 
     out = {}

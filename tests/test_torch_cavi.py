@@ -338,6 +338,33 @@ class TestFusedTwinParity:
         tres = tcavi.fit_cavi(tY, tp, ts, **kw)
         _assert_fits_agree(tres, jres, 12)
 
+    @pytest.mark.parametrize("fused", [True, "auto"])
+    def test_disable_switch_sends_the_fit_to_the_loop(self, monkeypatch,
+                                                      fused):
+        """``TAME_DISABLE_FUSED_FIT=1`` keeps K3 (and its twin) off under
+        ``fused=True`` and "auto", as in the JAX package: the fit is
+        ``fit_loop``'s, and JAX's under the same switch agrees."""
+        Y, jp, Xm, Xc = _problem(n=6, T=3, seed=8)
+        jY, jp, js, tY, tp, ts = _both(Y, jp, Xm, Xc)
+        kw = dict(structure="full", update_mode="block", num_blocks=3,
+                  max_iter=12, learning_rate=0.7, tolerance=0.0)
+        monkeypatch.setenv("TAME_DISABLE_FUSED_FIT", "1")
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("K3 ran under TAME_DISABLE_FUSED_FIT=1")
+
+        monkeypatch.setattr(tff, "fused_fit", refuse)
+        tres = tcavi.fit_cavi(tY, tp, ts, fused=fused, **kw)
+        loop = tcavi.fit_loop(tY, tp, ts, buf_size=64, patience=3,
+                              corrected=False, elbo_every=1, **kw)
+        assert tres.n_iter == loop.n_iter == 12
+        for name in ("X_mean", "X_cov", "elbo_history", "mse_history"):
+            torch.testing.assert_close(getattr(tres, name),
+                                       getattr(loop, name), rtol=0, atol=0,
+                                       equal_nan=True)
+        _assert_fits_agree(tres, jcavi.fit_cavi(jY, jp, js, fused=fused,
+                                                **kw), 12)
+
     def test_freeze_after_stop_matches_jax_kernel(self):
         Y, jp, Xm, Xc = _problem(n=6, T=3, seed=9)
         jY, jp, js, tY, tp, ts = _both(Y, jp, Xm, Xc)

@@ -136,6 +136,28 @@ class TestEngines:
             TemporalAMENaiveMFVI(TemporalAMEModel(n_nodes=4, n_time=2,
                                                   device="cpu"))
 
+    @pytest.mark.parametrize("engine", [TemporalAMECaviVI,
+                                        TemporalAMENaiveMFVI,
+                                        TemporalAMEStructuredMFVI])
+    def test_fit_takes_the_jax_checkpoint_keywords(self, demo_model, engine):
+        """``fit`` names JAX's keywords with JAX's defaults; asking for a
+        checkpointed fit raises until checkpointing is ported."""
+        import inspect
+
+        from tame.inference import engine as jengine
+
+        ours = inspect.signature(engine.fit).parameters
+        ref = inspect.signature(getattr(jengine, engine.__name__).fit)
+        assert list(ours) == list(ref.parameters)
+        for name in ("checkpoint_every", "ckpt_dir", "resume"):
+            assert ours[name].default == ref.parameters[name].default
+        vi = engine(demo_model, learning_rate=0.7)
+        for kw in (dict(checkpoint_every=2), dict(ckpt_dir="ckpt"),
+                   dict(resume=True)):
+            with pytest.raises(NotImplementedError, match="checkpoint"):
+                vi.fit(max_iter=4, verbose=False, **kw)
+        assert vi.get_elbo_history() == []
+
     def test_naive_keeps_diagonal_and_bad_keeps_zero_cross_blocks(
             self, demo_model):
         naive = TemporalAMENaiveMFVI(demo_model, learning_rate=0.7)

@@ -167,7 +167,9 @@ def _smoother_system(n, T, d, device, seed):
 
 @pytest.mark.parametrize("n,T,d", [(125, 50, 10), (2000, 50, 10),
                                    (3, 2, 4), (3, 1, 4), (125, 50, 14),
-                                   (7, 5, 16), (3, 1, 14), (2, 3, 48)])
+                                   (7, 5, 16), (3, 1, 14), (2, 3, 48),
+                                   (4, 3, 32), (4, 3, 34), (5, 4, 48),
+                                   (2001, 5, 10), (133, 7, 14)])
 def test_fused_smoother_matches_twin(cuda_device, n, T, d):
     D, O, b = _smoother_system(n, T, d, cuda_device, d + T)
     k = tfs.fused_smoother_kernel(D, O, b)
@@ -181,14 +183,38 @@ def test_fused_smoother_matches_twin(cuda_device, n, T, d):
     torch.testing.assert_close(k.logdet, t.logdet, rtol=LOGDET_RTOL, atol=0)
 
 
+def test_fused_smoother_indefinite_node_is_nan(cuda_device):
+    """A node whose D_t is indefinite gives NaN in every output, as the
+    twin does; the other nodes are the twin's."""
+    D, O, b = _smoother_system(5, 6, 14, cuda_device, 3)
+    D[2, 3] = -torch.eye(14, device=cuda_device)
+    k = tfs.fused_smoother_kernel(D, O, b)
+    torch.cuda.synchronize()
+    t = tfs.fused_smoother_twin(D, O, b)
+    keep = [0, 1, 3, 4]
+    for name in ("mean", "cov", "cross_cov", "logdet"):
+        got, ref = getattr(k, name), getattr(t, name)
+        assert torch.isnan(got[2]).all() and torch.isnan(ref[2]).all(), name
+        got, ref = got[keep], ref[keep]
+        assert torch.isfinite(got).all(), name
+        if name == "logdet":
+            torch.testing.assert_close(got, ref, rtol=LOGDET_RTOL, atol=0)
+        else:
+            assert (got - ref).abs().max() <= SMOOTHER_REL * ref.abs().max()
+
+
 def test_fused_smoother_envelope_and_smem_formula(cuda_device):
     from tame_torch.ops import _ext
 
     ext = _ext.load()
-    for d in tchol.UNROLLED_DIMS + (14, 16, tchol.MAX_KERNEL_D):
-        assert ext.fused_smoother_smem_bytes(d) == \
-            tfs.fused_smoother_smem_bytes(d)
-    assert ext.fused_smoother_smem_bytes(tchol.MAX_KERNEL_D + 2) == 0
+    for d in tchol.UNROLLED_DIMS + (14, 16, 32, 34, tchol.MAX_KERNEL_D):
+        for warps in range(1, tfs.MAX_WARPS + 1):
+            assert ext.fused_smoother_smem_bytes(d, warps) == \
+                tfs.fused_smoother_smem_bytes(d, warps)
+        for n in (1, 125, 133, 2000, 2001):
+            assert ext.fused_smoother_warps(n, d) == \
+                tfs.fused_smoother_warps(n, d)
+    assert ext.fused_smoother_smem_bytes(tchol.MAX_KERNEL_D + 2, 1) == 0
     D, O, b = _smoother_system(4, 3, 6, cuda_device, 0)
     with pytest.raises(ValueError, match="built for d in"):
         tfs.fused_smoother(D[..., :5, :5], O[:5, :5], b[..., :5])
