@@ -10,8 +10,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    K7 eta_contract) from ``tame_torch/csrc`` into ``build/tame_torch``;
 2. compare each kernel with its plain PyTorch twin on the same CUDA
    inputs, at the shapes the main paths give it (K1 and K2 also at
-   d = 14, their runtime-d variants; K4 also at d = 14, 32, 34 and 48 and
-   with one indefinite node, which must come out NaN), and time both with CUDA events
+   d = 14, their runtime-d variants; K3 at the 15-block demo fit, every d
+   it is built for, ``bench``'s 150-iteration Jacobi fit and n=100, T=10
+   in 10 blocks, with its bare launch timed beside the wrapper; K4 also
+   at d = 14, 32, 34 and 48 and with one indefinite node, which must come
+   out NaN), and time both with CUDA events
    (median of several runs), beside the kernel's bound (bytes over
    3.35 TB/s or operations over the peak rate of their type, whichever is
    larger) and, where one PyTorch call computes the same function, that
@@ -270,11 +273,7 @@ def fused_fit_flops(n: int, T: int, d: int, num_blocks: int,
 
 
 def phase_kernels(report: dict) -> None:
-    from tame_torch.inference import cavi
-    from tame_torch.models import TemporalAMEModel
-    from tame_torch.ops import _ext
     from tame_torch.ops import cholesky as ch
-    from tame_torch.ops import fused_fit as ff
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     # K1 at a block phase (B = 125 * 50) and a Jacobi sweep (n T) of the
@@ -346,59 +345,125 @@ def phase_kernels(report: dict) -> None:
           f"{cuda_ms(lambda: torch.logdet(P))} ms, bound "
           f"{bound(nbytes(P, ld), 2 * 100000 * 14**3 / 3, 'f32')}")
 
-    # K3 at the demo configuration, block updates with 15 blocks.
+
+
+def k3_compare(label: str, args, kw) -> float:
+    """Runs K3 and its twin on ``args``; requires the same stop, the ELBO
+    history within REL_TOL, the state within STATE_ATOL and NaN past the
+    stop; returns the largest state error."""
+    from tame_torch.ops import fused_fit as ff
+
+    k = ff.fused_fit_kernel(*args, **kw)
+    t = ff.fused_fit_twin(*args, **kw)
+    torch.cuda.synchronize()
+    n = t.n_iter
+    eh_k, eh_t = k.elbo_history[:n], t.elbo_history[:n]
+    h_rel = ((eh_k - eh_t).abs() / eh_t.abs()).max().item()
+    xm_err = (k.X_mean - t.X_mean).abs().max().item()
+    xc_err = (k.X_cov - t.X_cov).abs().max().item()
+    print(f"K3 {label}: n_iter {k.n_iter}/{t.n_iter} converged "
+          f"{k.converged}/{t.converged} elbo rel {h_rel} X_mean {xm_err} "
+          f"X_cov {xc_err}")
+    require(k.n_iter == t.n_iter and k.converged == t.converged
+            and k.diverged == t.diverged, f"K3 stop differs from twin at "
+            f"{label}")
+    require(h_rel <= REL_TOL and xm_err <= STATE_ATOL
+            and xc_err <= STATE_ATOL, f"K3 disagrees with its twin at {label}")
+    require(bool(torch.isnan(k.elbo_history[k.n_iter:]).all()),
+            f"K3 history past the stop is not NaN at {label}")
+    if args[9] > 0.0:  # the tolerance
+        require(k.converged and k.n_iter < args[7],
+                f"K3 stopping-rule case did not stop early at {label}")
+    return max(xm_err, xc_err)
+
+
+def phase_fused_fit(report: dict) -> None:
+    """K3 against its twin: the 15-block demo fit (every structure,
+    corrected, the stopping rule), every d in FUSED_DIMS (Jacobi and 4
+    blocks), ``bench``'s 150-iteration Jacobi fit and the n=100, T=10,
+    10-block fit whose data stay in device memory; then the bare launch
+    and the wrapper timed at both demo shapes."""
+    from tame_torch.inference import cavi
+    from tame_torch.models import TemporalAMEModel
+    from tame_torch.ops import _ext
+    from tame_torch.ops import fused_fit as ff
+    from tame_torch.scripts import fused_fit_probe as probe
+
     ext = _ext.load()
-    require(ext.fused_fit_smem_bytes(15, 10, 6, 15)
-            == ff.fused_fit_smem_bytes(15, 10, 6, 15),
-            "K3 shared-memory formula differs between Python and CUDA")
-    model = TemporalAMEModel(n_nodes=15, n_time=10, latent_dim=2, seed=7)
-    Y = model.generate_data(device="cuda")
-    p = model.params.to("cuda")
+    for shape in [(15, 10, 6, 15), (15, 10, 6, 1), (100, 10, 6, 10),
+                  (8, 4, 12, 1), (2000, 50, 10, 16)]:
+        layout = ff.fused_fit_layout(*shape)
+        want = ff.fused_fit_smem_bytes(*shape, layout) if layout >= 0 else 0
+        require(tuple(ext.fused_fit_layout(*shape)) == (layout, want),
+                f"K3 layout rule differs between Python and CUDA at {shape}")
     entry = report["fused_fit"]
     entry["max_abs_err"] = 0.0
-    for structure, corrected, lr, tol in [
-            ("full", False, 0.7, 0.0), ("full", True, 0.7, 0.0),
-            ("diag", False, 0.7, 0.0), ("block", False, 0.7, 0.0),
-            ("full", False, 0.7, 1e-3)]:
-        init = cavi.init_state(torch.Generator().manual_seed(3), 15, 10, 6,
-                               structure, 0.1, 0.5, device="cuda")
-        max_iter = 25 if tol == 0.0 else 150
+
+    def fit(n, T, r, seed, structure, max_iter, lr, tol, num_blocks,
+            corrected=False):
+        model = TemporalAMEModel(n_nodes=n, n_time=T, latent_dim=r,
+                                 seed=seed)
+        Y = model.generate_data(device="cuda")
+        p = model.params.to("cuda")
+        init = cavi.init_state(torch.Generator().manual_seed(3), n, T,
+                               2 + 2 * r, structure, 0.1, 0.5,
+                               device="cuda")
         args = (Y, p.R_inv, p.Sigma0, p.Q, p.Phi, init.X_mean, init.X_cov,
                 max_iter, lr, tol)
-        kw = dict(r=2, buf_size=64 if max_iter <= 64 else 256,
-                  structure=structure, corrected=corrected, num_blocks=15)
-        k = ff.fused_fit_kernel(*args, **kw)
-        t = ff.fused_fit_twin(*args, **kw)
-        torch.cuda.synchronize()
-        n = t.n_iter
-        eh_k, eh_t = k.elbo_history[:n], t.elbo_history[:n]
-        h_rel = ((eh_k - eh_t).abs() / eh_t.abs()).max().item()
-        xm_err = (k.X_mean - t.X_mean).abs().max().item()
-        xc_err = (k.X_cov - t.X_cov).abs().max().item()
-        print(f"K3 {structure} corrected={corrected} tol={tol}: n_iter "
-              f"{k.n_iter}/{t.n_iter} converged {k.converged}/{t.converged} "
-              f"elbo rel {h_rel} X_mean {xm_err} X_cov {xc_err}")
-        require(k.n_iter == t.n_iter and k.converged == t.converged
-                and k.diverged == t.diverged, "K3 stop differs from twin")
-        require(h_rel <= REL_TOL and xm_err <= STATE_ATOL
-                and xc_err <= STATE_ATOL, "K3 disagrees with its twin")
-        require(bool(torch.isnan(k.elbo_history[k.n_iter:]).all()),
-                "K3 history past the stop is not NaN")
-        if tol > 0.0:
-            require(k.converged and k.n_iter < max_iter,
-                    "K3 stopping-rule case did not stop early")
-        entry["max_abs_err"] = max(entry["max_abs_err"], xm_err, xc_err)
-        if (structure, corrected, tol) == ("full", False, 0.0):
-            entry["ms"] = cuda_ms(lambda: ff.fused_fit_kernel(*args, **kw),
-                                  reps=5, warmup=1)
-            entry["plain_ms"] = cuda_ms(
-                lambda: ff.fused_fit_twin(*args, **kw), reps=3, warmup=1)
-            entry.update(library_ms=None, **bound(
-                nbytes(Y, init.X_mean, init.X_cov, k.X_mean, k.X_cov)
-                + 3 * nbytes(Y[..., 0]),   # the kernel's W0, W1, y0
+        return args, dict(r=r, buf_size=64 if max_iter <= 64 else 256,
+                          structure=structure, corrected=corrected,
+                          num_blocks=num_blocks)
+
+    cases = [(f"15-block demo {s} corrected={c} tol={tol}",
+              fit(15, 10, 2, 7, s, 25 if tol == 0.0 else 150, 0.7, tol, 15,
+                  c))
+             for s, c, tol in [("full", False, 0.0), ("full", True, 0.0),
+                               ("diag", False, 0.0), ("block", False, 0.0),
+                               ("full", False, 1e-3)]]
+    for d in ff.FUSED_DIMS:
+        r = (d - 2) // 2
+        cases += [(f"d={d} n=12 T=5 Jacobi full", fit(12, 5, r, d, "full",
+                                                      20, 0.7, 0.0, 1)),
+                  (f"d={d} n=12 T=5 4 blocks full corrected",
+                   fit(12, 5, r, d, "full", 20, 0.7, 0.0, 4, True))]
+    cases.append(("n=100 T=10 d=6 10 blocks (data in device memory)",
+                  fit(100, 10, 2, 5, "full", 25, 0.7, 0.0, 10)))
+    demo, jacobi = probe.fit_shapes(torch.device("cuda"))
+    for label, args, kw in (demo, jacobi):
+        kw = dict(kw, r=2, buf_size=256, structure="full", corrected=False)
+        cases.append((label, (args, kw)))
+    for label, (args, kw) in cases:
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   k3_compare(label, args, kw))
+
+    times = {}
+    for label, args, kw in (demo, jacobi):
+        kw = dict(kw, r=2, buf_size=256, structure="full", corrected=False)
+        times[label] = probe.time_fit(args, kw, repeats=10)
+        print(f"K3 {label}: bare launch {times[label]['bare_ms']} ms, "
+              f"wrapper {times[label]['wrapper_ms']} ms")
+    args, kw = demo[1], dict(demo[2], r=2, buf_size=256, structure="full",
+                             corrected=False)
+    k = ff.fused_fit_kernel(*args, **kw)
+    Y = args[0]
+    entry.update(
+        ms=times[demo[0]]["bare_ms"],
+        wrapper_ms=times[demo[0]]["wrapper_ms"],
+        jacobi150_ms=times[jacobi[0]]["bare_ms"],
+        jacobi150_wrapper_ms=times[jacobi[0]]["wrapper_ms"],
+        plain_ms=cuda_ms(lambda: ff.fused_fit_twin(*args, **kw), reps=3,
+                         warmup=1),
+        library_ms=None,
+        # each input read once (Y, R^-1, the priors, the initial state),
+        # each output written once (the state, both histories, the stats)
+        **bound(nbytes(*args[:7]) + nbytes(k.X_mean, k.X_cov)
+                + 4 * (2 * kw["buf_size"] + 5),
                 fused_fit_flops(15, 10, 6, 15, k.n_iter), "f32"))
-            print(f"K3 25-iteration fit: kernel {entry['ms']} ms, twin "
-                  f"{entry['plain_ms']} ms, bound {entry['bound_ms']} ms")
+    print(f"K3 25-iteration 15-block fit: kernel {entry['ms']} ms (wrapper "
+          f"{entry['wrapper_ms']}), twin {entry['plain_ms']} ms, bound "
+          f"{entry['bound_ms']} ms; 150-iteration Jacobi fit: kernel "
+          f"{entry['jacobi150_ms']} ms (wrapper "
+          f"{entry['jacobi150_wrapper_ms']})")
 
 
 def phase_demo() -> None:
@@ -895,6 +960,7 @@ def main() -> int:
 
     report = {name: {} for name in KERNELS}
     phase_kernels(report)
+    phase_fused_fit(report)
     phase_smoother_kernel(report)
     phase_contract_kernels(report)
     phase_eta_kernel(report)

@@ -61,79 +61,75 @@ torch::Tensor logdet_spd(torch::Tensor P) {
   return out;
 }
 
-int64_t fused_fit_smem_bytes(int64_t n, int64_t T, int64_t d,
-                             int64_t num_blocks) {
-  return static_cast<int64_t>(tame_fused_fit_smem_bytes(
-      static_cast<int>(n), static_cast<int>(T), static_cast<int>(d),
-      static_cast<int>(num_blocks)));
+std::tuple<int64_t, int64_t> fused_fit_layout(int64_t n, int64_t T,
+                                              int64_t d, int64_t num_blocks) {
+  const int n_ = static_cast<int>(n), T_ = static_cast<int>(T),
+            d_ = static_cast<int>(d), nb = static_cast<int>(num_blocks);
+  return {tame_fused_fit_layout(n_, T_, d_, nb),
+          static_cast<int64_t>(tame_fused_fit_smem_bytes(n_, T_, d_, nb))};
 }
 
-void fused_fit(torch::Tensor W0, torch::Tensor W1, torch::Tensor eta_a,
-               torch::Tensor eta_b, torch::Tensor y0, torch::Tensor Xm0,
-               torch::Tensor Xc0, torch::Tensor pri, torch::Tensor Xm,
-               torch::Tensor Xc, torch::Tensor eh, torch::Tensor mh,
-               torch::Tensor stats, int64_t num_blocks, int64_t max_iter,
-               int64_t carry_pat, int64_t patience, int64_t structure,
-               bool corrected, double lr, double tol, double p, double q,
-               double tr_rinv, double logdet_R, double logdet_S0,
-               double logdet_Q, double carry_elbo) {
-  for (auto* t : {&W0, &W1, &eta_a, &eta_b, &y0, &Xm0, &Xc0, &pri, &Xm, &Xc,
-                  &eh, &mh, &stats})
+void fused_fit(torch::Tensor Y, torch::Tensor rinv, torch::Tensor Sigma0,
+               torch::Tensor Q, torch::Tensor Phi, torch::Tensor Xm0,
+               torch::Tensor Xc0, torch::Tensor Xm, torch::Tensor Xc,
+               torch::Tensor hist, torch::Tensor gdata, int64_t num_blocks,
+               int64_t max_iter, int64_t carry_pat, int64_t patience,
+               int64_t structure, bool corrected, double lr, double tol,
+               double carry_elbo) {
+  for (auto* t : {&Y, &rinv, &Sigma0, &Q, &Phi, &Xm0, &Xc0, &Xm, &Xc, &hist,
+                  &gdata})
     check(*t, "fused_fit input");
   TORCH_CHECK(Xm0.dim() == 3, "X_mean must be (n, T, d)");
   const int n = static_cast<int>(Xm0.size(0)), T = static_cast<int>(Xm0.size(1)),
             d = static_cast<int>(Xm0.size(2));
-  TORCH_CHECK(W0.dim() == 3 && W0.size(0) == n && W0.size(1) == n &&
-                  W0.size(2) == T && W1.sizes() == W0.sizes() &&
-                  y0.sizes() == W0.sizes(),
-              "W0, W1, y0 must be (n, n, T)");
-  TORCH_CHECK(eta_a.numel() == n * T && eta_b.numel() == n * T,
-              "eta_a, eta_b must be (n, T)");
+  TORCH_CHECK(Y.dim() == 4 && Y.size(0) == n && Y.size(1) == n &&
+                  Y.size(2) == T && Y.size(3) == 2,
+              "Y must be (n, n, T, 2)");
+  TORCH_CHECK(rinv.numel() == 4, "R_inv must be (2, 2)");
+  TORCH_CHECK(Sigma0.numel() == d * d && Q.numel() == d * d &&
+                  Phi.numel() == d * d,
+              "Sigma0, Q, Phi must be (d, d)");
   TORCH_CHECK(Xc0.numel() == static_cast<int64_t>(n) * T * d * d &&
                   Xm.sizes() == Xm0.sizes() && Xc.sizes() == Xc0.sizes(),
               "X_cov must be (n, T, d, d)");
-  TORCH_CHECK(pri.numel() == 5 * d * d, "pri must be (5, d, d)");
   TORCH_CHECK(num_blocks >= 1 && n % num_blocks == 0,
               "num_blocks must divide n");
-  TORCH_CHECK(eh.numel() >= max_iter && mh.numel() >= max_iter,
-              "history buffers shorter than max_iter");
-  TORCH_CHECK(stats.numel() == 5, "stats must hold 5 values");
+  TORCH_CHECK(hist.numel() >= 2 * max_iter + 5 && hist.numel() % 2 == 1,
+              "hist must hold two histories of at least max_iter slots and "
+              "5 stats");
   TORCH_CHECK(structure >= 0 && structure <= 2, "bad structure code");
-  const size_t smem = tame_fused_fit_smem_bytes(n, T, d, num_blocks);
-  TORCH_CHECK(smem <= kMaxSmemBytes, "fused fit needs ", smem,
-              " bytes of shared memory, more than the ", kMaxSmemBytes,
-              " a block may use");
-  const c10::cuda::CUDAGuard guard(W0.device());
+  const int mode = tame_fused_fit_layout(n, T, d, static_cast<int>(num_blocks));
+  TORCH_CHECK(mode >= 0, "fused fit at n=", n, " T=", T, " d=", d,
+              " needs more than the ", kMaxSmemBytes,
+              " bytes of shared memory a block may use");
+  TORCH_CHECK((mode & 1) || gdata.numel() >= 4 * static_cast<int64_t>(T) * n * n,
+              "this shape reads its data from device memory: gdata must hold "
+              "4 T n n floats");
+  const c10::cuda::CUDAGuard guard(Y.device());
   FusedFitArgs a;
-  a.W0 = W0.data_ptr<float>();
-  a.W1 = W1.data_ptr<float>();
-  a.eta_a = eta_a.data_ptr<float>();
-  a.eta_b = eta_b.data_ptr<float>();
-  a.y0 = y0.data_ptr<float>();
+  a.Y = Y.data_ptr<float>();
+  a.rinv = rinv.data_ptr<float>();
+  a.Sigma0 = Sigma0.data_ptr<float>();
+  a.Q = Q.data_ptr<float>();
+  a.Phi = Phi.data_ptr<float>();
   a.Xm0 = Xm0.data_ptr<float>();
   a.Xc0 = Xc0.data_ptr<float>();
-  a.pri = pri.data_ptr<float>();
   a.Xm = Xm.data_ptr<float>();
   a.Xc = Xc.data_ptr<float>();
-  a.eh = eh.data_ptr<float>();
-  a.mh = mh.data_ptr<float>();
-  a.stats = stats.data_ptr<float>();
+  a.hist = hist.data_ptr<float>();
+  a.gdata = gdata.numel() ? gdata.data_ptr<float>() : nullptr;
   a.n = n;
   a.T = T;
   a.num_blocks = static_cast<int>(num_blocks);
   a.max_iter = static_cast<int>(max_iter);
+  a.hist_len = static_cast<int>((hist.numel() - 5) / 2);
   a.carry_pat = static_cast<int>(carry_pat);
   a.patience = static_cast<int>(patience);
   a.structure = static_cast<int>(structure);
   a.corrected = corrected ? 1 : 0;
+  a.pad = a.staged = 0;
   a.lr = static_cast<float>(lr);
   a.tol = static_cast<float>(tol);
-  a.p = static_cast<float>(p);
-  a.q = static_cast<float>(q);
-  a.tr_rinv = static_cast<float>(tr_rinv);
-  a.logdet_R = static_cast<float>(logdet_R);
-  a.logdet_S0 = static_cast<float>(logdet_S0);
-  a.logdet_Q = static_cast<float>(logdet_Q);
   a.carry_elbo = static_cast<float>(carry_elbo);
   check_launch(tame_fused_fit(a, d, at::cuda::getCurrentCUDAStream()),
                "fused_fit");
@@ -266,8 +262,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("spd_solve_inv", &spd_solve_inv, "K1: batched SPD solve (+ inverse)");
   m.def("logdet_spd", &logdet_spd, "K2: batched SPD log-determinant");
   m.def("fused_fit", &fused_fit, "K3: whole CAVI fit in one thread block");
-  m.def("fused_fit_smem_bytes", &fused_fit_smem_bytes,
-        "shared memory K3 needs for (n, T, d, num_blocks)");
+  m.def("fused_fit_layout", &fused_fit_layout,
+        "(layout, shared-memory bytes) of a K3 fit at (n, T, d, num_blocks)");
   m.def("masked_contract", &masked_contract,
         "K5: int8 mask stripe @ bf16-rounded feature panel");
   m.def("dual_contract", &dual_contract,

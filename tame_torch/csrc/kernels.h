@@ -20,28 +20,37 @@ cudaError_t tame_spd_solve_inv(const float* P, const float* eta, float* mu,
 cudaError_t tame_logdet_spd(const float* P, float* out, int B, int d,
                             cudaStream_t stream);
 
-// K3: the whole damped-CAVI fit in one thread block.
+// K3: the whole damped-CAVI fit in one thread block.  Every input is read
+// as the caller holds it; the kernel derives the dyad weights, the prior
+// matrices and the log-determinants itself.
 struct FusedFitArgs {
-  const float* W0;     // (n, n, T)  p y0 + q y1
-  const float* W1;     // (n, n, T)  q y0 + p y1
-  const float* eta_a;  // (n, T)     row sums of W0
-  const float* eta_b;  // (n, T)     row sums of W1
-  const float* y0;     // (n, n, T)  Y[..., 0]
-  const float* Xm0;    // (n, T, d)  initial means
-  const float* Xc0;    // (n, T, d, d) initial covariances
-  const float* pri;    // (5, d, d)  Sigma0^-1, Q^-1, Q^-1 Phi, Phi' Q^-1 Phi, Phi
-  float* Xm;           // (n, T, d)  out
-  float* Xc;           // (n, T, d, d) out
-  float* eh;           // (>= max_iter,) ELBO history, NaN-filled by the caller
-  float* mh;           // (>= max_iter,) MSE history, NaN-filled by the caller
-  float* stats;        // (5,) n_iter, converged, diverged, pat_count, last_elbo
-  int n, T, num_blocks, max_iter, carry_pat, patience;
-  int structure;       // 0 diag, 1 full, 2 block
-  int corrected;       // 0 or 1
-  float lr, tol, p, q, tr_rinv, logdet_R, logdet_S0, logdet_Q, carry_elbo;
+  const float* Y;       // (n, n, T, 2)
+  const float* rinv;    // (2, 2)  R^-1
+  const float* Sigma0;  // (d, d)
+  const float* Q;       // (d, d)
+  const float* Phi;     // (d, d)
+  const float* Xm0;     // (n, T, d)  initial means
+  const float* Xc0;     // (n, T, d, d) initial covariances
+  float* Xm;            // (n, T, d)  out
+  float* Xc;            // (n, T, d, d) out
+  float* hist;          // (2 hist_len + 5,) out: ELBO history, MSE history
+                        // (NaN past the stop), then n_iter, converged,
+                        // diverged, pat_count, last_elbo
+  float* gdata;         // (4, T, n, n) scratch: W0, W1, y0, y0^T time-major,
+                        // where the layout does not stage them (else unused)
+  int n, T, num_blocks, max_iter, hist_len, carry_pat, patience;
+  int structure;        // 0 diag, 1 full, 2 block
+  int corrected;        // 0 or 1
+  int pad, staged;      // the layout; set by tame_fused_fit
+  float lr, tol, carry_elbo;
 };
 
-// Dynamic shared memory the fit needs (bytes).
+// The layout a fit runs with: bit 0 set when W0, W1 and y0 are staged in
+// shared memory (else gdata is needed), bit 1 when the state rows have the
+// odd pitch d + 1; -1 when no layout fits 227 KB.
+int tame_fused_fit_layout(int n, int T, int d, int num_blocks);
+
+// Dynamic shared memory of that layout (bytes; 0 when none fits).
 size_t tame_fused_fit_smem_bytes(int n, int T, int d, int num_blocks);
 
 cudaError_t tame_fused_fit(const FusedFitArgs& args, int d,

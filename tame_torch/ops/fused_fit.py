@@ -6,19 +6,36 @@ K3 ``fused_fit`` (``csrc/fused_fit.cu``) replaces
 unfused loop is bound by launch count, not arithmetic: one block-mode
 iteration at n=15 is 15 phases of ~40 small ops each.  The kernel runs all
 iterations — block phases, exact diagnostics, ELBO, stopping rule — in one
-thread block with ``X_mean``/``X_cov`` resident in shared memory, so a fit
-is one launch.  It is bound by the latency of one SM (few factors per
-phase, phases in sequence); running many fits across SMs is later work.
+512-thread block with ``X_mean``/``X_cov`` resident in shared memory, so a
+fit is one launch.  What bounds it is neither bytes nor operations but the
+chain of dependent phases on one SM: each phase is a statistics pass over
+all nodes, a barrier, the block's closed-form updates and another barrier.
+The design shortens each link: a group of 4, 8 or 16 lanes (d = 4; 6, 8;
+10, 12) per (node, time) factor, lane k holding row k of the precision; the
+partner contraction split over the group's lanes; the inverse, the solve
+and the entropy's log-determinant by a Gauss-Jordan sweep whose pivot row
+is broadcast by shuffles (no step of a factor's algebra on one thread);
+branch-free statistics split over lanes; the fit's constant data (W0, W1,
+y0) formed from ``Y`` in the prologue and kept in shared memory where they
+fit (:func:`fused_fit_layout`), else in time-major device scratch.
+
+The wrapper does no work before the launch and does not synchronise: the
+kernel reads ``Y``, ``R_inv``, ``Sigma0``, ``Q`` and ``Phi`` as they are
+and forms the dyad weights, the prior matrices and the log-determinants on
+chip (the TPU kernel's SMEM scalars); the learning rate, tolerance and
+carry are the launch's arguments.  One device-to-host copy brings back both
+histories and the stop statistics (:func:`fused_fit_launch` is the launch
+half alone).
 
 Scope (checked by :func:`fused_fit_supported`): structures ``diag``,
 ``full``, ``block``; ``jacobi`` or ``block`` updates; exact diagnostics
 every iteration; float32 weights (no ``mixed_precision``); no mask; d in
 :data:`FUSED_DIMS`, the JAX envelope d <= 12 (K1, K2 and K4 also take
-larger d; K3 does not); and the fit's shared
-memory (:func:`fused_fit_smem_bytes`) within the 227 KB a Hopper block may
-use.  At d=6 the state alone is (d + d^2) n T 4 B: 25 KB at n=15, T=10
-(inside) and 168 KB at n=100, T=10 (inside with 10 blocks, outside as one
-Jacobi block, whose phase scratch doubles it).
+larger d; K3 does not); and a problem inside the shared-memory envelope K3
+has had since it was ported (:func:`fused_fit_envelope_bytes` within the
+227 KB a Hopper block may use: 25 KB at n=15, T=10, d=6; n=100, T=10
+inside with 10 blocks, outside as one Jacobi block).  Every shape inside
+it has a layout.
 
 Semantics match :func:`tame_torch.inference.cavi.fit_cavi`: once the
 stopping rule fires the state freezes and the history slots past the stop
@@ -39,11 +56,15 @@ SMEM_LIMIT_BYTES = 232448  # 227 KB: the most one block may use on sm_90
 # megakernel's d <= 12 (tame/ops/fused_fit.py, fused_fit_supported).
 FUSED_DIMS = (4, 6, 8, 10, 12)
 _STRUCTURE_CODES = {"diag": 0, "full": 1, "block": 2}
+_RED_FLOATS = 16 * 6  # 16 warps x 6 block-wide sums
+STAGED, PADDED = 1, 2  # layout bits (csrc/fused_fit.cu, choose_layout)
 
 
-def fused_fit_smem_bytes(n: int, T: int, d: int, num_blocks: int) -> int:
-    """Dynamic shared memory of one K3 fit; mirrors ``smem_floats`` in
-    ``csrc/fused_fit.cu``."""
+def fused_fit_envelope_bytes(n: int, T: int, d: int, num_blocks: int) -> int:
+    """Shared memory of the first K3 design at this shape (the state, one
+    block's new means and covariances, the statistics, the priors):
+    :func:`fused_fit_supported` admits a shape when it is within 227 KB,
+    the envelope K3 has kept since it was ported."""
     r = (d - 2) // 2
     per_factor = d + d * d
     floats = (n * T * per_factor                 # X_mean, X_cov
@@ -53,6 +74,35 @@ def fused_fit_smem_bytes(n: int, T: int, d: int, num_blocks: int) -> int:
               + 8 * 6                            # block reduction
               + 1)                               # running flag
     return 4 * floats
+
+
+def fused_fit_smem_bytes(n: int, T: int, d: int, num_blocks: int,
+                         layout: int) -> int:
+    """Dynamic shared memory of one K3 fit in ``layout`` (bits
+    :data:`STAGED`, :data:`PADDED`); mirrors ``make_layout`` in
+    ``csrc/fused_fit.cu``."""
+    mp = d + (1 if layout & PADDED else 0)
+    moments = (d - 1) ** 2 + d
+    bsT = (n // num_blocks) * T
+    floats = (n * T * mp + n * T * d * mp        # X_mean, X_cov rows
+              + 4 * d * mp                       # prior matrices
+              + max(bsT * mp + T * moments, _RED_FLOATS)  # scratch, moments
+              + 1)                               # running flag
+    if layout & STAGED:
+        floats += 2 * T * n * n + T * n * (n | 1)  # W0, W1, y0
+    return 4 * floats
+
+
+def fused_fit_layout(n: int, T: int, d: int, num_blocks: int) -> int:
+    """The layout K3 runs this shape with: the first of (staged + padded,
+    staged, padded, neither) whose shared memory fits 227 KB, -1 if none
+    does; mirrors ``choose_layout`` in ``csrc/fused_fit.cu``."""
+    if n < 1 or T < 1 or num_blocks < 1 or n % num_blocks:
+        return -1
+    for layout in (STAGED | PADDED, STAGED, PADDED, 0):
+        if fused_fit_smem_bytes(n, T, d, num_blocks, layout) <= SMEM_LIMIT_BYTES:
+            return layout
+    return -1
 
 
 def fused_fit_supported(n: int, T: int, d: int, *, structure: str,
@@ -69,7 +119,7 @@ def fused_fit_supported(n: int, T: int, d: int, *, structure: str,
         num_blocks = 1
     elif num_blocks is None or n % num_blocks != 0:
         return False
-    return fused_fit_smem_bytes(n, T, d, num_blocks) <= SMEM_LIMIT_BYTES
+    return fused_fit_envelope_bytes(n, T, d, num_blocks) <= SMEM_LIMIT_BYTES
 
 
 class FusedFitOut(NamedTuple):
@@ -109,12 +159,15 @@ def fused_fit_twin(Y, R_inv, Sigma0, Q, Phi, X_mean0, X_cov0, max_iter,
     return FusedFitOut(*res)
 
 
-def fused_fit_kernel(Y, R_inv, Sigma0, Q, Phi, X_mean0, X_cov0, max_iter,
+def fused_fit_launch(Y, R_inv, Sigma0, Q, Phi, X_mean0, X_cov0, max_iter,
                      learning_rate, tolerance, carry_elbo=None, carry_pat=0,
                      *, r: int, buf_size: int, patience: int = 3,
                      corrected: bool = False, structure: str = "full",
-                     num_blocks: int = 1) -> FusedFitOut:
-    """Launch K3 on CUDA tensors."""
+                     num_blocks: int = 1):
+    """Launch K3 on CUDA tensors without synchronising: returns
+    ``(X_mean, X_cov, hist)`` on the card, ``hist`` holding the ELBO
+    history, the MSE history (``buf_size`` slots each) and n_iter,
+    converged, diverged, pat_count, last_elbo."""
     n, _, T, _ = Y.shape
     d = 2 + 2 * r
     if d not in FUSED_DIMS:
@@ -123,35 +176,42 @@ def fused_fit_kernel(Y, R_inv, Sigma0, Q, Phi, X_mean0, X_cov0, max_iter,
         raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
     if max_iter > buf_size:
         raise ValueError("buf_size must hold max_iter history slots")
-    f32 = torch.float32
-    Y = Y.to(f32)
-    p, q = R_inv[0, 0], R_inv[0, 1]
-    y0 = Y[..., 0].contiguous()
-    W0 = (p * y0 + q * Y[..., 1]).contiguous()
-    W1 = (q * y0 + p * Y[..., 1]).contiguous()
-    Q_inv = torch.linalg.inv(Q)
-    pri = torch.stack([torch.linalg.inv(Sigma0), Q_inv, Q_inv @ Phi,
-                       Phi.T @ Q_inv @ Phi, Phi]).to(f32).contiguous()
-    scal = torch.stack([p, q, R_inv[0, 0] + R_inv[1, 1],
-                        -torch.linalg.slogdet(R_inv)[1],
-                        torch.linalg.slogdet(Sigma0)[1],
-                        torch.linalg.slogdet(Q)[1]]).tolist()
-    Xm0 = X_mean0.to(f32).contiguous()
-    Xc0 = X_cov0.to(f32).contiguous()
+    layout = fused_fit_layout(n, T, d, num_blocks)
+    if layout < 0:
+        raise ValueError(f"K3 has no layout for n={n}, T={T}, d={d} within "
+                         f"{SMEM_LIMIT_BYTES} bytes of shared memory")
+
+    def f32(x):
+        return x.to(device=Y.device, dtype=torch.float32).contiguous()
+
+    Xm0, Xc0 = f32(X_mean0), f32(X_cov0)
     Xm, Xc = torch.empty_like(Xm0), torch.empty_like(Xc0)
-    eh = torch.full((buf_size,), float("nan"), dtype=f32, device=Y.device)
-    mh = torch.full_like(eh, float("nan"))
-    stats = torch.zeros(5, dtype=f32, device=Y.device)
+    hist = torch.empty(2 * buf_size + 5, dtype=torch.float32,
+                       device=Y.device)
+    gdata = torch.empty(0 if layout & STAGED else 4 * T * n * n,
+                        dtype=torch.float32, device=Y.device)
     _ext.load().fused_fit(
-        W0, W1, W0.sum(1).contiguous(), W1.sum(1).contiguous(), y0, Xm0, Xc0,
-        pri, Xm, Xc, eh, mh, stats, num_blocks, int(max_iter),
-        int(carry_pat), patience, _STRUCTURE_CODES[structure], corrected,
-        float(learning_rate), float(tolerance), *scal,
+        f32(Y), f32(R_inv), f32(Sigma0), f32(Q), f32(Phi), Xm0, Xc0, Xm, Xc,
+        hist, gdata, num_blocks, int(max_iter), int(carry_pat), patience,
+        _STRUCTURE_CODES[structure], corrected, float(learning_rate),
+        float(tolerance),
         float("-inf") if carry_elbo is None else float(carry_elbo))
     fused_fit_kernel.launches += 1
-    n_iter, conv, div, pat, last = stats.tolist()
-    return FusedFitOut(X_mean=Xm, X_cov=Xc, elbo_history=eh.cpu(),
-                       mse_history=mh.cpu(), n_iter=int(n_iter),
+    return Xm, Xc, hist
+
+
+def fused_fit_kernel(Y, R_inv, Sigma0, Q, Phi, X_mean0, X_cov0, max_iter,
+                     learning_rate, tolerance, carry_elbo=None, carry_pat=0,
+                     **kw) -> FusedFitOut:
+    """Launch K3 on CUDA tensors; one readback after the launch."""
+    Xm, Xc, hist = fused_fit_launch(Y, R_inv, Sigma0, Q, Phi, X_mean0,
+                                    X_cov0, max_iter, learning_rate,
+                                    tolerance, carry_elbo, carry_pat, **kw)
+    buf = kw["buf_size"]
+    h = hist.cpu()
+    n_iter, conv, div, pat, last = h[2 * buf:].tolist()
+    return FusedFitOut(X_mean=Xm, X_cov=Xc, elbo_history=h[:buf],
+                       mse_history=h[buf:2 * buf], n_iter=int(n_iter),
                        converged=bool(conv), diverged=bool(div),
                        last_elbo=last, pat_count=int(pat))
 

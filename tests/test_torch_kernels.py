@@ -94,25 +94,48 @@ def test_fused_smem_formula_matches_kernel(cuda_device):
     from tame_torch.ops import _ext
 
     ext = _ext.load()
-    for shape in [(15, 10, 6, 15), (100, 10, 6, 10), (8, 4, 12, 1)]:
-        assert ext.fused_fit_smem_bytes(*shape) == \
-            tff.fused_fit_smem_bytes(*shape)
+    for shape in [(15, 10, 6, 15), (15, 10, 6, 1), (100, 10, 6, 10),
+                  (8, 4, 12, 1), (13, 7, 10, 1), (2897, 1, 4, 2897),
+                  (2000, 50, 10, 16), (15, 10, 6, 4)]:
+        layout = tff.fused_fit_layout(*shape)
+        want = (tff.fused_fit_smem_bytes(*shape, layout) if layout >= 0
+                else 0)
+        assert tuple(ext.fused_fit_layout(*shape)) == (layout, want), shape
 
 
-@pytest.mark.parametrize("structure,corrected,num_blocks", [
-    ("full", False, 4), ("full", True, 12), ("diag", False, 1),
-    ("block", False, 3)])
-def test_fused_fit_matches_twin(cuda_device, structure, corrected,
-                                num_blocks):
-    model = TemporalAMEModel(n_nodes=12, n_time=5, latent_dim=2, seed=7)
-    Y = model.generate_data(device=cuda_device)
-    p = model.params.to(cuda_device)
-    init = cavi.init_state(torch.Generator().manual_seed(1), 12, 5, 6,
-                           structure, 0.1, 0.5, device=cuda_device)
-    args = (Y, p.R_inv, p.Sigma0, p.Q, p.Phi, init.X_mean, init.X_cov, 20,
-            0.7, 0.0)
-    kw = dict(r=2, buf_size=64, structure=structure, corrected=corrected,
-              num_blocks=num_blocks)
+def _k3_fit(device, n, T, d, structure, seed, max_iter=20):
+    """(positional args, keywords) of a K3 fit on the card."""
+    model = TemporalAMEModel(n_nodes=n, n_time=T, latent_dim=(d - 2) // 2,
+                             seed=seed)
+    Y = model.generate_data(device=device)
+    p = model.params.to(device)
+    init = cavi.init_state(torch.Generator().manual_seed(seed), n, T, d,
+                           structure, 0.1, 0.5, device=device)
+    return (Y, p.R_inv, p.Sigma0, p.Q, p.Phi, init.X_mean, init.X_cov,
+            max_iter, 0.7, 0.0), dict(r=(d - 2) // 2, buf_size=64,
+                                      structure=structure)
+
+
+# every d x {Jacobi, 4 blocks} x structure x corrected at n=12, T=5; a
+# ragged Jacobi n, 5 blocks of 3 nodes, and the n=100, T=10, 10-block fit,
+# whose W0, W1 and y0 stay in device memory
+_K3_CASES = [(12, 5, d, nb, s, c) for d in tff.FUSED_DIMS for nb in (1, 4)
+             for s in ("diag", "full", "block") for c in (False, True)] + [
+    (13, 5, 6, 1, "full", False), (15, 10, 6, 5, "block", True),
+    (100, 10, 6, 10, "full", False)]
+
+
+@pytest.mark.parametrize("n,T,d,num_blocks,structure,corrected", _K3_CASES)
+def test_fused_fit_matches_twin(cuda_device, n, T, d, num_blocks, structure,
+                                corrected):
+    # Bad SMF at d = 12 grows its means fastest: over 20 iterations the
+    # fit's own float32 rounding reaches the state bound, so it is compared
+    # over 10 (test_torch_fused_fit holds the float32 twin to a float64 run
+    # within half the bound there).
+    max_iter = 10 if (d, structure) == (12, "block") else 20
+    args, kw = _k3_fit(cuda_device, n, T, d, structure, seed=d + n,
+                       max_iter=max_iter)
+    kw.update(corrected=corrected, num_blocks=num_blocks)
     k = tff.fused_fit_kernel(*args, **kw)
     t = tff.fused_fit_twin(*args, **kw)
     assert (k.n_iter, k.converged, k.diverged) == (t.n_iter, t.converged,
@@ -121,6 +144,30 @@ def test_fused_fit_matches_twin(cuda_device, structure, corrected,
                                atol=0, equal_nan=True)
     torch.testing.assert_close(k.X_mean, t.X_mean, rtol=0, atol=STATE_ATOL)
     torch.testing.assert_close(k.X_cov, t.X_cov, rtol=0, atol=STATE_ATOL)
+
+
+def test_fused_fit_launch_does_not_synchronise(cuda_device):
+    """The launch half of ``fused_fit_kernel`` runs under
+    ``set_sync_debug_mode("error")``, where a readback raises; the one
+    readback comes after it."""
+    args, kw = _k3_fit(cuda_device, 15, 10, 6, "full", seed=3)
+    kw.update(num_blocks=15)
+    ref = tff.fused_fit_kernel(*args, **kw)  # builds the extension
+    torch.cuda.synchronize()
+    before = tff.fused_fit_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Xm, _, hist = tff.fused_fit_launch(*args, **kw)
+        with pytest.raises(RuntimeError):
+            hist.cpu()  # the mode is live: a readback synchronises
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tff.fused_fit_kernel.launches == before + 1
+    h = hist.cpu()
+    assert int(h[-5]) == ref.n_iter == 20
+    torch.testing.assert_close(h[:64], ref.elbo_history, rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(Xm, ref.X_mean, rtol=0, atol=0)
 
 
 def test_fused_fit_freezes_after_stop(cuda_device):
