@@ -10,12 +10,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    K7 eta_contract) from ``tame_torch/csrc`` into ``build/tame_torch``;
 2. compare each kernel with its plain PyTorch twin on the same CUDA
    inputs, at the shapes the main paths give it (K1 and K2 also at
-   d = 14, their runtime-d variants; K3 at the 15-block demo fit, every d
+   d = 14, 34 and 48, ragged batches and two indefinite systems, which
+   must come out NaN alone; K3 at the 15-block demo fit, every d
    it is built for, ``bench``'s 150-iteration Jacobi fit and n=100, T=10
    in 10 blocks, with its bare launch timed beside the wrapper; K4 also
    at d = 14, 32, 34 and 48 and with one indefinite node, which must come
    out NaN), and time both with CUDA events
-   (median of several runs), beside the kernel's bound (bytes over
+   (median of several runs; K1 and K2 as 20 launches replayed from one
+   CUDA graph, their device time), beside the kernel's bound (bytes over
    3.35 TB/s or operations over the peak rate of their type, whichever is
    larger) and, where one PyTorch call computes the same function, that
    call's time;
@@ -45,7 +47,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 10. the layout probe ``tame_torch.scripts.layout_probe3`` at N=2000,
     T=50, R=4, K=25: the eta contraction's four variants, through K7;
 11. an r = 6 (d = 14) Good-SMF fit and smoothed fit at n=2000, T=50, 20
-    iterations each, through the runtime-d K1/K2 and K4;
+    iterations each, through K1/K2 and K4 at d = 14;
 12. the benchmark ``tame_torch.scripts.bench`` with 32 demo fits and 2
     repeats (its n=2000 legs at full size), which prints its JSON line.
 
@@ -203,7 +205,7 @@ def phase_smoother_kernel(report: dict) -> None:
     require(all(ext.fused_smoother_smem_bytes(d, w)
                 == fs.fused_smoother_smem_bytes(d, w)
                 and ext.fused_smoother_warps(n, d) == fs.fused_smoother_warps(n, d)
-                for d in ch.UNROLLED_DIMS + (14, 16, 32, 34, ch.MAX_KERNEL_D)
+                for d in (4, 6, 8, 10, 12, 14, 16, 32, 34, ch.MAX_KERNEL_D)
                 for w in range(1, fs.MAX_WARPS + 1) for n in (125, 2000)),
             "K4 shared-memory or packing formula differs between Python and "
             "CUDA")
@@ -272,16 +274,38 @@ def fused_fit_flops(n: int, T: int, d: int, num_blocks: int,
     return n_iter * (num_blocks * phase + diagnostics)
 
 
-def phase_kernels(report: dict) -> None:
-    from tame_torch.ops import cholesky as ch
+def spd_flops(B: int, d: int, with_inverse: bool = True) -> float:
+    """K1's operations (multiply-adds counted twice): the factor d^3 / 3,
+    the inverse 2 d^3, the mean 2 d^2 per system; without the inverse the
+    factor and the mean only."""
+    per = d**3 / 3 + 2 * d * d + (2 * d**3 if with_inverse else 0)
+    return 2 * B * per
 
+
+def phase_kernels(report: dict) -> None:
+    """K1 and K2 against their twins.  Their ``ms`` is device time, 20
+    launches replayed from one CUDA graph (``spd_probe.graph_ms``): one
+    call between two events (``call_ms``) mostly times the host reaching
+    the launch."""
+    from tame_torch.ops import _ext
+    from tame_torch.ops import cholesky as ch
+    from tame_torch.scripts.spd_probe import graph_ms
+
+    ext = _ext.load()
+    require(all(tuple(ext.spd_geometry(d, nw)) == ch.spd_geometry(d, nw)
+                for d in range(ch.MAX_KERNEL_D + 4) for nw in (False, True)),
+            "K1/K2 geometry differs between Python and CUDA")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # K1 at a block phase (B = 125 * 50) and a Jacobi sweep (n T) of the
-    # n=2000 fit, a ragged batch at the demo's d, and the runtime-d kernel
-    # at the r = 6 fit's block phase and a ragged batch.
-    for d, B, timed in [(10, 6250, True), (10, 100000, False),
-                        (6, 1001, False), (14, 6250, False),
-                        (14, 1001, False)]:
+    entry = report["spd_solve_inv"]
+    entry["max_abs_err"] = 0.0
+    # K1 at a block phase of the n=2000 fit (B = 125 * 50; timed), at 8
+    # blocks (bench's n=2000 legs) and a Jacobi sweep (n T), a ragged batch
+    # at the demo's d, the r = 6 fit's block phase (timed) and a ragged
+    # batch, and the padded capacity with two rows per lane (d = 34, 48).
+    for d, B, timed in [(10, 6250, True), (10, 12500, False),
+                        (10, 100000, False), (6, 1001, False),
+                        (14, 6250, True), (14, 1001, False),
+                        (34, 1003, False), (48, 1001, False)]:
         P, eta = spd_batch(B, d, gen)
         mu, cov = ch.spd_solve_inv_kernel(P, eta)
         mu_t, cov_t = ch.spd_solve_inv_twin(P, eta)
@@ -294,57 +318,88 @@ def phase_kernels(report: dict) -> None:
               f"{[e[0] for e in errs]} rel = {[e[1] for e in errs]}")
         require(all(e[1] <= REL_TOL for e in errs),
                 f"K1 disagrees with its twin at d={d} B={B}")
-        entry = report["spd_solve_inv"]
-        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), worst)
-        if d == 14 and B == 6250:
-            print(f"K1 d=14 B=6250 (runtime d): kernel "
-                  f"{cuda_ms(lambda: ch.spd_solve_inv_kernel(P, eta))} ms, "
-                  f"twin {cuda_ms(lambda: ch.spd_solve_inv_twin(P, eta))} "
-                  f"ms, bound " + str(bound(
-                      nbytes(P, eta, mu, cov),
-                      2 * B * (d**3 / 3 + 2 * d**3 + 2 * d * d), "f32")))
-        if timed:
-            entry["ms"] = cuda_ms(lambda: ch.spd_solve_inv_kernel(P, eta))
-            entry["plain_ms"] = cuda_ms(lambda: ch.spd_solve_inv_twin(P, eta))
-            # factor d^3/3, inverse 2 d^3, mean 2 d^2 multiply-adds x 2
-            entry.update(library_ms=None, **bound(
-                nbytes(P, eta, mu, cov),
-                2 * B * (d**3 / 3 + 2 * d**3 + 2 * d * d), "f32"))
-            print(f"K1 d={d} B={B}: kernel {entry['ms']} ms, twin "
-                  f"{entry['plain_ms']} ms, bound {entry['bound_ms']} ms")
+        require(torch.equal(mu1, mu), f"K1's mu-only launch is not bitwise "
+                f"its full launch's mu at d={d} B={B}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+        if not timed:
+            continue
+        t = dict(
+            ms=graph_ms(lambda: ch.spd_solve_inv_kernel(P, eta), 10),
+            ms_mu_only=graph_ms(lambda: ch.spd_solve_inv_kernel(
+                P, eta, with_inverse=False), 10),
+            call_ms=cuda_ms(lambda: ch.spd_solve_inv_kernel(P, eta)),
+            plain_ms=cuda_ms(lambda: ch.spd_solve_inv_twin(P, eta)),
+            library_ms=cuda_ms(lambda: torch.linalg.solve(P, eta)),
+            library_inv_ms=cuda_ms(lambda: torch.linalg.inv_ex(P)),
+            **bound(nbytes(P, eta, mu, cov), spd_flops(B, d), "f32"))
+        print(f"K1 d={d} B={B}: kernel {t['ms']} ms (mu only "
+              f"{t['ms_mu_only']}; one call {t['call_ms']}), twin "
+              f"{t['plain_ms']} ms, "
+              f"torch.linalg.solve (mu only) {t['library_ms']} ms, "
+              f"torch.linalg.inv_ex (inverse only) {t['library_inv_ms']} "
+              f"ms, bound {t['bound_ms']} ms ({t['bound_by']})")
+        if d == 10:
+            entry.update(t, library="torch.linalg.solve(P, eta), the "
+                         "mu-only function; library_inv_ms: "
+                         "torch.linalg.inv_ex(P), the inverse alone")
+        else:
+            entry[f"ms_d{d}"] = t["ms"]
+    # one system made indefinite at the first pivot, one at the third:
+    # NaN for those, the twin's values for the others
+    for d in (14, 48):
+        P, eta = spd_batch(37, d, gen)
+        P[5] = -P[5]
+        P[20] = torch.eye(d, device="cuda")
+        P[20, 2, 2] = -1.0
+        outs = (*ch.spd_solve_inv_kernel(P, eta),
+                ch.spd_solve_inv_kernel(P, eta, with_inverse=False),
+                ch.logdet_spd_kernel(P))
+        torch.cuda.synchronize()
+        keep = [b for b in range(37) if b not in (5, 20)]
+        require(all(bool(torch.isnan(x[[5, 20]]).all())
+                    and bool(torch.isfinite(x[keep]).all()) for x in outs),
+                f"K1/K2 did not give NaN for the indefinite systems alone "
+                f"at d={d}")
+        mu_t, cov_t = ch.spd_solve_inv_twin(P, eta)
+        errs = [rel_err(outs[0][keep], mu_t[keep]),
+                rel_err(outs[1][keep], cov_t[keep]),
+                rel_err(outs[3][keep], ch.logdet_spd_twin(P)[keep])]
+        print(f"K1/K2 d={d}, systems 5 and 20 indefinite: NaN there; "
+              f"others (max_abs_err, rel) {errs}")
+        require(all(e[1] <= REL_TOL for e in errs),
+                f"K1/K2 disagree with their twins beside an indefinite "
+                f"system at d={d}")
 
-    # K2 at the n=2000 entropy batch (n T = 100,000 factors, d = 10).
-    P, _ = spd_batch(100000, 10, gen)
-    ld, ld_t = ch.logdet_spd_kernel(P), ch.logdet_spd_twin(P)
-    torch.cuda.synchronize()
-    err, rel = rel_err(ld, ld_t)
-    print(f"K2 d=10 B=100000: max_abs_err {err} rel {rel}")
-    require(rel <= REL_TOL, "K2 disagrees with its twin")
+    # K2 at the n=2000 entropy batch (n T = 100,000 factors, d = 10; the
+    # reported timing), the r = 6 one (d = 14; timed), ragged batches and
+    # the padded capacity.
     entry = report["logdet_spd"]
-    entry["max_abs_err"] = err
-    entry["ms"] = cuda_ms(lambda: ch.logdet_spd_kernel(P))
-    entry["plain_ms"] = cuda_ms(lambda: ch.logdet_spd_twin(P))
-    entry["library_ms"] = cuda_ms(lambda: torch.logdet(P))
-    entry.update(bound(nbytes(P, ld), 2 * 100000 * 10**3 / 3, "f32"))
-    print(f"K2: kernel {entry['ms']} ms, twin {entry['plain_ms']} ms, "
-          f"torch.logdet {entry['library_ms']} ms, bound "
-          f"{entry['bound_ms']} ms")
-    # the runtime-d K2 at a ragged batch and the r = 6 entropy batch
-    # (n T = 100,000, d = 14), timed at the latter
-    for B in (1001, 100000):
-        P, _ = spd_batch(B, 14, gen)
+    entry["max_abs_err"] = 0.0
+    for d, B, timed in [(10, 100000, True), (14, 100000, True),
+                        (14, 1001, False), (34, 1003, False),
+                        (48, 1001, False)]:
+        P, _ = spd_batch(B, d, gen)
         ld, ld_t = ch.logdet_spd_kernel(P), ch.logdet_spd_twin(P)
         torch.cuda.synchronize()
         err, rel = rel_err(ld, ld_t)
-        require(rel <= REL_TOL, f"K2 disagrees with its twin at d=14 B={B}")
+        print(f"K2 d={d} B={B}: max_abs_err {err} rel {rel}")
+        require(rel <= REL_TOL, f"K2 disagrees with its twin at d={d} B={B}")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        print(f"K2 d=14 B={B} (runtime d): max_abs_err {err} rel {rel}")
-    print(f"K2 d=14 B=100000 (runtime d): kernel "
-          f"{cuda_ms(lambda: ch.logdet_spd_kernel(P))} ms, twin "
-          f"{cuda_ms(lambda: ch.logdet_spd_twin(P))} ms, torch.logdet "
-          f"{cuda_ms(lambda: torch.logdet(P))} ms, bound "
-          f"{bound(nbytes(P, ld), 2 * 100000 * 14**3 / 3, 'f32')}")
-
+        if not timed:
+            continue
+        t = dict(ms=graph_ms(lambda: ch.logdet_spd_kernel(P), 10),
+                 call_ms=cuda_ms(lambda: ch.logdet_spd_kernel(P)),
+                 plain_ms=cuda_ms(lambda: ch.logdet_spd_twin(P)),
+                 library_ms=cuda_ms(lambda: torch.logdet(P)),
+                 **bound(nbytes(P, ld), 2 * B * d**3 / 3, "f32"))
+        print(f"K2 d={d} B={B}: kernel {t['ms']} ms (one call "
+              f"{t['call_ms']}), twin {t['plain_ms']} "
+              f"ms, torch.logdet {t['library_ms']} ms, bound "
+              f"{t['bound_ms']} ms ({t['bound_by']})")
+        if d == 10:
+            entry.update(t)
+        else:
+            entry[f"ms_d{d}"] = t["ms"]
 
 
 def k3_compare(label: str, args, kw) -> float:
@@ -459,11 +514,24 @@ def phase_fused_fit(report: dict) -> None:
         **bound(nbytes(*args[:7]) + nbytes(k.X_mean, k.X_cov)
                 + 4 * (2 * kw["buf_size"] + 5),
                 fused_fit_flops(15, 10, 6, 15, k.n_iter), "f32"))
+    # the same for bench's Jacobi fit (one block phase per iteration)
+    args, kw = jacobi[1], dict(jacobi[2], r=2, buf_size=256,
+                               structure="full", corrected=False)
+    k = ff.fused_fit_kernel(*args, **kw)
+    jb = bound(nbytes(*args[:7]) + nbytes(k.X_mean, k.X_cov)
+               + 4 * (2 * kw["buf_size"] + 5),
+               fused_fit_flops(15, 10, 6, 1, k.n_iter), "f32")
+    entry.update(
+        jacobi150_plain_ms=cuda_ms(lambda: ff.fused_fit_twin(*args, **kw),
+                                   reps=3, warmup=1),
+        jacobi150_bound_ms=jb["bound_ms"], jacobi150_bound_by=jb["bound_by"])
     print(f"K3 25-iteration 15-block fit: kernel {entry['ms']} ms (wrapper "
           f"{entry['wrapper_ms']}), twin {entry['plain_ms']} ms, bound "
           f"{entry['bound_ms']} ms; 150-iteration Jacobi fit: kernel "
           f"{entry['jacobi150_ms']} ms (wrapper "
-          f"{entry['jacobi150_wrapper_ms']})")
+          f"{entry['jacobi150_wrapper_ms']}), twin "
+          f"{entry['jacobi150_plain_ms']} ms, bound "
+          f"{entry['jacobi150_bound_ms']} ms ({jb['bound_by']})")
 
 
 def phase_demo() -> None:
@@ -807,7 +875,7 @@ def check_history(label: str, h: dict, n_iter: int, ms: float) -> float:
 
 def phase_high_rank_good(model) -> int:
     """An r = 6 Good-SMF fit (16 blocks, exact diagnostics) of 20
-    iterations through the runtime-d K1 and K2."""
+    iterations through K1 and K2 at d = 14."""
     from tame_torch import TemporalAMEStructuredMFVI
 
     vi = TemporalAMEStructuredMFVI(model, factorization="good",
@@ -824,7 +892,7 @@ def phase_high_rank_good(model) -> int:
 
 def phase_high_rank_smoothed(model) -> int:
     """An r = 6 smoothed fit (warm init, 16 blocks) of 20 iterations
-    through the runtime-d K4."""
+    through K4 at d = 14."""
     from tame_torch import TemporalAMESmoothedVI
 
     start = torch.cuda.Event(enable_timing=True)

@@ -61,6 +61,12 @@ torch::Tensor logdet_spd(torch::Tensor P) {
   return out;
 }
 
+std::tuple<int64_t, int64_t, int64_t> spd_geometry(int64_t d,
+                                                   bool narrow) {
+  const SpdGeometry g = tame_spd_geometry(static_cast<int>(d), narrow);
+  return {g.capacity, g.group, g.systems};
+}
+
 std::tuple<int64_t, int64_t> fused_fit_layout(int64_t n, int64_t T,
                                               int64_t d, int64_t num_blocks) {
   const int n_ = static_cast<int>(n), T_ = static_cast<int>(T),
@@ -261,6 +267,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "nodes per K4 block for n trajectories at state dimension d");
   m.def("spd_solve_inv", &spd_solve_inv, "K1: batched SPD solve (+ inverse)");
   m.def("logdet_spd", &logdet_spd, "K2: batched SPD log-determinant");
+  m.def("spd_geometry", &spd_geometry,
+        "(capacity, lanes per system, systems per block) at d of K1 with "
+        "the inverse (narrow false) or of K1 without it and K2 past d = 12");
   m.def("fused_fit", &fused_fit, "K3: whole CAVI fit in one thread block");
   m.def("fused_fit_layout", &fused_fit_layout,
         "(layout, shared-memory bytes) of a K3 fit at (n, T, d, num_blocks)");

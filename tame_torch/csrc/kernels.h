@@ -2,9 +2,8 @@
 // sizes only, so the .cu files never include PyTorch's headers; the one
 // binding file (binding.cpp) checks tensors and calls these.  Each returns
 // cudaGetLastError() after its launch (cudaErrorInvalidValue for a size no
-// kernel takes).  K1 and K2 take d in {4, ..., 12} unrolled and every
-// other even d up to 48 in a runtime-d kernel; K4 takes every even d from
-// 4 to 48 in one design.
+// kernel takes).  K1, K2 and K4 take every even d from 4 to 48, each in
+// one design.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,13 +11,24 @@
 #include <stdint.h>
 
 // K1: mu = P^-1 eta and, when cov != nullptr, cov = P^-1.
-// P (B, d, d), eta (B, d), mu (B, d), cov (B, d, d); float32, row-major.
+// P (B, d, d), eta (B, d), mu (B, d), cov (B, d, d); float32, row-major;
+// only the lower triangle of P is read; P 16-byte aligned
+// (cudaErrorMisalignedAddress otherwise).
 cudaError_t tame_spd_solve_inv(const float* P, const float* eta, float* mu,
                                float* cov, int B, int d, cudaStream_t stream);
 
-// K2: out[b] = log det P[b].  P (B, d, d) float32 row-major.
+// K2: out[b] = log det P[b].  P (B, d, d) float32 row-major, as K1 takes it.
 cudaError_t tame_logdet_spd(const float* P, float* out, int B, int d,
                             cudaStream_t stream);
+
+// Launch geometry of K1 with the inverse (narrow false) or of K1 without
+// it and K2 past d = 12 (narrow true; K2 up to d = 12 runs one thread per
+// system) at state dimension d: the column capacity, the lanes per system
+// and the systems per block (all 0 for a d they do not take).
+struct SpdGeometry {
+  int capacity, group, systems;
+};
+SpdGeometry tame_spd_geometry(int d, bool narrow);
 
 // K3: the whole damped-CAVI fit in one thread block.  Every input is read
 // as the caller holds it; the kernel derives the dyad weights, the prior

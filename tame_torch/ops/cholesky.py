@@ -12,18 +12,26 @@ K1 ``spd_solve_inv`` (``csrc/spd.cu``) replaces
 ``tame/ops/cholesky.py::_chol_solve_inv_kernel`` (via
 ``_pallas_spd_solve_inv``).  K2 ``logdet_spd`` (same file) replaces
 ``tame/ops/cholesky.py::_logdet_kernel`` (via ``_pallas_logdet``).  Both
-run one thread per system.  For d in :data:`UNROLLED_DIMS` the factor lives
-in registers (the unrolled ``template<int D>`` Cholesky of
-``csrc/chol.cuh``); every other even d up to :data:`MAX_KERNEL_D` (the JAX
-kernels unroll for any d, and an r = 6 model has d = 14) runs a runtime-d
-variant with the factor in shared memory.  On the card they are bound by
-device-memory
+take every even d from 4 to :data:`MAX_KERNEL_D` in one design: a group of
+4 to 32 lanes per system (:func:`spd_geometry`, which mirrors the kernel's
+rule), row i of P in registers of lane i % G, loops to a compile-time
+column capacity, and rows read up to the diagonal in 8- or 16-byte loads,
+so a warp reads neighbouring systems as one span.  The group factors P by
+a right-looking Cholesky, each pivot and each L entry shuffled from the
+lane that holds its row, in the JAX kernel's arithmetic order, so L, the
+pivots and log det P come out as that kernel's (and the one-thread CUDA
+kernel's that came before) bit for bit.  K2 sums the log pivots; K1 then
+solves the columns of [I | eta] by forward and backward substitution, one
+lane per column.  K1 with the inverse takes one row a lane up to d = 32;
+K1 without it and K2 take narrower groups with several rows a lane, as
+their throughput is bound by the shuffles, one issue per warp for each L
+entry; up to d = 12, where the entropy's n T systems keep every lane
+busy, K2 runs the same Cholesky on one thread per system, which measured
+faster there.  Only the lower triangle of P is read, as by the JAX
+kernels and the twins.  On the card they are bound by device-memory
 traffic: K1 with the inverse reads d^2 + d and writes d^2 + d floats per
-system for ~d^3 flops, far below the H100's flop/byte balance.  Reading a
-row-major (B, d, d) batch one system per thread is uncoalesced (adjacent
-threads are d^2 floats apart); L1/L2 absorb part of it and a
-transposed-batch layout is later work.  The ragged tail is a bounds
-check, not the TPU kernel's identity padding.
+system for ~2.3 d^3 flops.  The ragged tail is a bounds check, not the
+TPU kernel's identity padding.
 """
 
 from __future__ import annotations
@@ -32,16 +40,47 @@ import torch
 
 from tame_torch.ops import _ext
 
-UNROLLED_DIMS = (4, 6, 8, 10, 12)  # template<int D> instantiations
-MAX_KERNEL_D = 48                  # the runtime-d variants' largest d
+MAX_KERNEL_D = 48  # K1, K2 and K4 take every even d up to this
 KERNEL_D_TEXT = f"{{4, 6, ..., {MAX_KERNEL_D}}}"
 
 
 def kernel_supports_d(d: int) -> bool:
-    """Whether K1, K2 and K4 have a build for state dimension ``d``
-    (unrolled or runtime-d): every even d from 4 to :data:`MAX_KERNEL_D`,
-    i.e. d = 2 + 2r for r = 1 .. 23."""
+    """Whether K1, K2 and K4 have a build for state dimension ``d``: every
+    even d from 4 to :data:`MAX_KERNEL_D`, i.e. d = 2 + 2r for r = 1 .. 23."""
     return d % 2 == 0 and 4 <= d <= MAX_KERNEL_D
+
+
+def spd_capacity(d: int) -> int:
+    """K1/K2's column capacity at state dimension ``d`` (``spd_capacity``
+    in ``csrc/spd.cu``): exact up to 16, then 24, 32, 48."""
+    return d if d <= 16 else (24 if d <= 24 else (32 if d <= 32 else 48))
+
+
+def spd_group(capacity: int, narrow: bool = False) -> int:
+    """Lanes per system at a column capacity (``spd_group`` in
+    ``csrc/spd.cu``): K1 with the inverse 4, 8, 16, then 32; ``narrow``
+    (K1 without the inverse, and K2 past d = 12) 4 up to 16, then 8 and
+    16, with several rows per lane."""
+    c = capacity
+    if narrow:
+        return 4 if c <= 16 else (8 if c <= 24 else 16)
+    return 4 if c <= 4 else (8 if c <= 8 else (16 if c <= 16 else 32))
+
+
+def spd_geometry(d: int, narrow: bool = False) -> tuple[int, int, int]:
+    """``(capacity, lanes per system, systems per block)`` of K1 with the
+    inverse (of K1 without it and K2 past d = 12 when ``narrow``; K2 up to
+    d = 12 runs one thread per system) at ``d``, as the
+    kernel's ``tame_spd_geometry`` gives it; zeros for a d they do not
+    take.  A system's rows live in a group of G lanes, row i in lane i % G
+    (:func:`spd_group`); a block has 256 threads, or 64 where a lane's rows
+    take more than 64 floats."""
+    if not kernel_supports_d(d):
+        return 0, 0, 0
+    c = spd_capacity(d)
+    g = spd_group(c, narrow)
+    rows = -(-c // g)
+    return c, g, (64 if rows * c > 64 else 256) // g
 
 
 def _check_kernel_inputs(P: torch.Tensor, *others: torch.Tensor) -> None:
@@ -72,7 +111,7 @@ def _on_card(x: torch.Tensor) -> bool:
 
 def _cholesky_nan(P: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor; NaN for a system that is not positive
-    definite, as the unrolled kernel gives (sqrt of a negative pivot)."""
+    definite, as the kernels give (a pivot that is not positive)."""
     L, info = torch.linalg.cholesky_ex(P)
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(L, float("nan")), L)
@@ -99,11 +138,19 @@ def logdet_spd_twin(P: torch.Tensor) -> torch.Tensor:
 # Kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
+def _aligned(P: torch.Tensor) -> torch.Tensor:
+    """P contiguous and 16-byte aligned, as K1/K2 read it (a copy only for
+    a view that starts inside an allocation at an odd offset)."""
+    P = P.contiguous()
+    return P if P.data_ptr() % 16 == 0 else P.clone()
+
+
 def spd_solve_inv_kernel(P: torch.Tensor, eta: torch.Tensor,
                          with_inverse: bool = True):
-    """Launch K1 on CUDA tensors: P (B, d, d), eta (B, d)."""
+    """Launch K1 on CUDA tensors: P (B, d, d), of which only the lower
+    triangle is read, and eta (B, d)."""
     _check_kernel_inputs(P, eta)
-    mu, cov = _ext.load().spd_solve_inv(P.contiguous(), eta.contiguous(),
+    mu, cov = _ext.load().spd_solve_inv(_aligned(P), eta.contiguous(),
                                         with_inverse)
     spd_solve_inv_kernel.launches += 1
     return (mu, cov) if with_inverse else mu
@@ -113,9 +160,10 @@ spd_solve_inv_kernel.launches = 0
 
 
 def logdet_spd_kernel(P: torch.Tensor) -> torch.Tensor:
-    """Launch K2 on a CUDA tensor: P (B, d, d) -> (B,)."""
+    """Launch K2 on a CUDA tensor: P (B, d, d), lower triangle read ->
+    (B,)."""
     _check_kernel_inputs(P)
-    out = _ext.load().logdet_spd(P.contiguous())
+    out = _ext.load().logdet_spd(_aligned(P))
     logdet_spd_kernel.launches += 1
     return out
 

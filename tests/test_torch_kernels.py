@@ -58,9 +58,13 @@ def _spd(B, d, device, seed):
     return P, torch.randn(B, d, device=device, generator=g)
 
 
+# (d, B): every group width, the exact capacities and the padded ones (18
+# in 24, 34 in 48), each B a ragged multiple of its systems per block
+# (64 / 32 / 16 / 8 by d).
 @pytest.mark.parametrize("d,B", [(4, 1001), (6, 1001), (8, 130),
                                  (10, 6250), (12, 777), (14, 6250),
-                                 (16, 777), (48, 33)])
+                                 (16, 777), (18, 77), (34, 1003), (48, 33),
+                                 (48, 1001)])
 def test_spd_kernels_match_twins(cuda_device, d, B):
     P, eta = _spd(B, d, cuda_device, d)
     mu, cov = tchol.spd_solve_inv_kernel(P, eta)
@@ -73,6 +77,80 @@ def test_spd_kernels_match_twins(cuda_device, d, B):
     torch.testing.assert_close(mu_only, mu, rtol=0, atol=0)
     torch.testing.assert_close(ld, tchol.logdet_spd_twin(P), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [6, 14, 34, 48])
+def test_spd_kernels_indefinite_system_is_nan_alone(cuda_device, d):
+    P, eta = _spd(37, d, cuda_device, d + 1)
+    P[5] = -P[5]                       # the first pivot fails
+    P[20] = torch.eye(d, device=cuda_device)
+    P[20, 2, 2] = -1.0                 # the third pivot fails
+    mu, cov = tchol.spd_solve_inv_kernel(P, eta)
+    mu_only = tchol.spd_solve_inv_kernel(P, eta, with_inverse=False)
+    ld = tchol.logdet_spd_kernel(P)
+    torch.cuda.synchronize()
+    bad = torch.zeros(37, dtype=torch.bool, device=cuda_device)
+    bad[[5, 20]] = True
+    for x in (mu, cov, mu_only, ld):
+        assert torch.isnan(x[bad]).all() and torch.isfinite(x[~bad]).all()
+    mu_t, cov_t = tchol.spd_solve_inv_twin(P, eta)
+    torch.testing.assert_close(mu[~bad], mu_t[~bad], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(cov[~bad], cov_t[~bad], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(ld[~bad], tchol.logdet_spd_twin(P)[~bad],
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [4, 10, 14, 48])
+def test_spd_kernels_read_only_the_lower_triangle(cuda_device, d):
+    P, eta = _spd(65, d, cuda_device, d + 2)
+    upper = torch.triu(torch.ones(d, d, dtype=torch.bool,
+                                  device=cuda_device), 1)
+    Pg = P.clone()
+    Pg[:, upper] = float("nan")
+    mu, cov = tchol.spd_solve_inv_kernel(Pg, eta)
+    ld = tchol.logdet_spd_kernel(Pg)
+    torch.cuda.synchronize()
+    mu_t, cov_t = tchol.spd_solve_inv_twin(P, eta)
+    torch.testing.assert_close(mu, mu_t, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(cov, cov_t, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(ld, tchol.logdet_spd_twin(P), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_spd_kernels_empty_and_strided_batches(cuda_device):
+    for d in (10, 48):
+        P, eta = _spd(0, d, cuda_device, 0)
+        mu, cov = tchol.spd_solve_inv_kernel(P, eta)
+        assert mu.shape == (0, d) and cov.shape == (0, d, d)
+        assert tchol.logdet_spd_kernel(P).shape == (0,)
+    # a non-contiguous P (every other system of a batch) and a view that
+    # starts off a 16-byte boundary
+    P, eta = _spd(402, 14, cuda_device, 3)
+    Ps, es = P[::2], eta[::2]
+    assert not Ps.is_contiguous()
+    base = torch.empty(1 + P.numel(), device=cuda_device)
+    base[1:] = P.reshape(-1)
+    Pm = base[1:].view_as(P)
+    assert Pm.data_ptr() % 16 != 0
+    for Pb, eb in [(Ps, es), (Pm, eta)]:
+        mu, cov = tchol.spd_solve_inv_kernel(Pb, eb)
+        ld = tchol.logdet_spd_kernel(Pb)
+        torch.cuda.synchronize()
+        mu_t, cov_t = tchol.spd_solve_inv_twin(Pb.contiguous(), eb)
+        torch.testing.assert_close(mu, mu_t, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(cov, cov_t, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(ld, tchol.logdet_spd_twin(Pb.contiguous()),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_spd_geometry_matches_kernel(cuda_device):
+    from tame_torch.ops import _ext
+
+    ext = _ext.load()
+    for d in range(0, tchol.MAX_KERNEL_D + 4):
+        for narrow in (False, True):
+            assert tuple(ext.spd_geometry(d, narrow)) == \
+                tchol.spd_geometry(d, narrow), (d, narrow)
 
 
 def test_public_entry_points_launch_the_kernels(cuda_device):
@@ -254,7 +332,7 @@ def test_fused_smoother_envelope_and_smem_formula(cuda_device):
     from tame_torch.ops import _ext
 
     ext = _ext.load()
-    for d in tchol.UNROLLED_DIMS + (14, 16, 32, 34, tchol.MAX_KERNEL_D):
+    for d in (4, 6, 8, 10, 12, 14, 16, 32, 34, tchol.MAX_KERNEL_D):
         for warps in range(1, tfs.MAX_WARPS + 1):
             assert ext.fused_smoother_smem_bytes(d, warps) == \
                 tfs.fused_smoother_smem_bytes(d, warps)

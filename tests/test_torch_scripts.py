@@ -24,6 +24,7 @@ from tame_torch.scripts import (
     masked_scale_probe,
     scale_bench,
     smoother_bench,
+    spd_probe,
 )
 from tame_torch.utils import profiling
 
@@ -148,6 +149,41 @@ def test_fused_block_probe_matches_the_unfused_loop():
     res = fused_block_probe.main(CPU + ["--sizes", "6", "--T", "3",
                                         "--max-iter", "4"])
     assert res[6]["elbo_rel_err"] < 1e-4 and res[6]["k3_launches"] == 0
+
+
+def test_spd_probe_times_the_twins_and_the_r6_paths(tmp_path, capsys):
+    out = tmp_path / "spd.json"
+    res = spd_probe.main(CPU + ["--dims", "4", "48", "--batches", "3", "17",
+                                "--k2-dims", "14", "--k2-batch", "9",
+                                "--repeats", "1", "--fits", "--fit-n", "8",
+                                "--fit-T", "3", "--fit-iters", "2", "--tag",
+                                "cpu", "--out", str(out)])
+    assert [(r["d"], r["B"]) for r in res["k1"]] == [(4, 3), (4, 17),
+                                                     (48, 3), (48, 17)]
+    assert [(r["d"], r["B"]) for r in res["k2"]] == [(14, 9)]
+    assert all(r["twin_host_ms"] > 0 and "ms" not in r
+               for r in res["k1"] + res["k2"])
+    # no kernel on the CPU: the Good-SMF fit runs K1's twin
+    assert set(res["fits"]) == {"r6_good_smf", "r6_smoothed"}
+    assert all(f["k1_launches"] == 0 and f["ms_per_iter"] > 0
+               for f in res["fits"].values())
+    assert json.loads(out.read_text()) == res
+    assert "cpu K1" in capsys.readouterr().out
+    # the bound: K1 with the inverse at d = 10, B = 6,250 moves 2.75 MB
+    b = spd_probe.bound_ms(10, 6250, "inv")
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(6250 * 2 * 110 * 4 / 3.35e12 * 1e3)
+
+
+def test_spd_probe_compares_outputs_bit_for_bit():
+    a = {"d=4 B=3": {"mu": torch.tensor([1.0, 2.0]),
+                     "logdet": torch.tensor([0.5])}}
+    b = {"d=4 B=3": {"mu": torch.tensor([1.0, 2.25]),
+                     "logdet": torch.tensor([0.5])}}
+    assert spd_probe.compare_bits(a, a) == {"d=4 B=3": {"mu": True,
+                                                        "logdet": True}}
+    assert spd_probe.compare_bits(a, b) == {"d=4 B=3": {"mu": 0.25,
+                                                        "logdet": True}}
 
 
 def test_scripts_need_the_card_unless_asked_for_the_cpu():
