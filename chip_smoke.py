@@ -15,9 +15,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    it is built for, ``bench``'s 150-iteration Jacobi fit and n=100, T=10
    in 10 blocks, with its bare launch timed beside the wrapper; K4 also
    at d = 14, 32, 34 and 48 and with one indefinite node, which must come
-   out NaN), and time both with CUDA events
-   (median of several runs; K1 and K2 as 20 launches replayed from one
-   CUDA graph, their device time), beside the kernel's bound (bytes over
+   out NaN; K6 also at m = 40, in slices of 16 columns, and at a ragged
+   n = 37, each with two launches on the same inputs that must give the
+   same bits), and time both with CUDA events
+   (median of several runs; K1, K2, K5 and K6 as launches replayed from
+   one CUDA graph, their device time, K5's block stripes in rotation over
+   the 16 stripes of the mask, with one wrapper call between two events
+   beside it), beside the kernel's bound (bytes over
    3.35 TB/s or operations over the peak rate of their type, whichever is
    larger) and, where one PyTorch call computes the same function, that
    call's time;
@@ -715,11 +719,17 @@ def packed_mask_env(on: bool):
 
 def phase_contract_kernels(report: dict) -> None:
     """K5 and K6 against their twins on CUDA inputs, timed beside the
-    bf16 ``bmm`` that computes the same products."""
+    bf16 ``bmm`` that computes the same products.  Their ``ms`` is device
+    time, launches replayed from one CUDA graph
+    (``contract_probe.rotating_graph_ms``), K5's block stripes in rotation
+    over the 16 stripes of the mask, so each arrives cold as in a block
+    sweep; ``call_ms`` is one wrapper call between two events.  K6's two
+    launches on the same inputs must give the same bits."""
     from tame_torch.inference import cavi
     from tame_torch.models import random_dyad_mask
     from tame_torch.ops import dual_contract as dc
     from tame_torch.ops import masked_contract as mc
+    from tame_torch.scripts.contract_probe import rotating_graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     n, T, r = 2000, 50, 4
@@ -729,20 +739,21 @@ def phase_contract_kernels(report: dict) -> None:
     panels = {57: cavi._masked_panel(U, V),          # precision panel
               56: torch.randn(n, T, 56, device="cuda", generator=gen)}
     small = random_dyad_mask(gen, 20, 3, MISSING_FRAC)
-    # (label, stripes, panel): one n=2000 block phase (16 blocks, bs=125)
-    # with the precision and the stats panel, the ragged n=20 case (every
-    # stripe) and the full n=2000 mask as one stripe.
-    blocks = mc.pack_mask(mask, 16)
-    cases = [("n=2000 bs=125 K=57", [blocks[0]], panels[57]),
-             ("n=2000 bs=125 K=56", [blocks[0]], panels[56]),
-             ("n=20 T=3 K=5 nb=4", list(mc.pack_mask(small, 4)),
+    # (label, stripes checked, stripes timed in rotation, panel): one
+    # n=2000 block phase (16 blocks, bs=125) with the precision and the
+    # stats panel, the ragged n=20 case (every stripe) and the full n=2000
+    # mask as one stripe.
+    blocks = list(mc.pack_mask(mask, 16))
+    small_stripes = list(mc.pack_mask(small, 4))
+    whole = [mc.pack_mask(mask, 1)[0]]
+    cases = [("n=2000 bs=125 K=57", blocks[:1], blocks, panels[57]),
+             ("n=2000 bs=125 K=56", blocks[:1], blocks, panels[56]),
+             ("n=20 T=3 K=5 nb=4", small_stripes, small_stripes,
               torch.randn(20, 3, 5, device="cuda", generator=gen)),
-             ("n=2000 one stripe K=57", [mc.pack_mask(mask, 1)[0]],
-              panels[57])]
-    del blocks
+             ("n=2000 one stripe K=57", whole, whole, panels[57])]
     entry = report["masked_contract"]
     entry["max_abs_err"] = 0.0
-    for label, stripes, Z in cases:
+    for label, stripes, rotation, Z in cases:
         err = rel = 0.0
         for Mp in stripes:
             got = mc.packed_rows_contract_kernel(Mp, Z)
@@ -752,7 +763,10 @@ def phase_contract_kernels(report: dict) -> None:
             err, rel = max(err, e), max(rel, rl)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         Mp = stripes[0]
-        ms = cuda_ms(lambda: mc.packed_rows_contract_kernel(Mp, Z))
+        ms = rotating_graph_ms(
+            [lambda M=M: mc.packed_rows_contract_kernel(M, Z)
+             for M in rotation], 10, max(20, 2 * len(rotation)))
+        call_ms = cuda_ms(lambda: mc.packed_rows_contract_kernel(Mp, Z))
         plain_ms = cuda_ms(lambda: mc.packed_rows_contract_twin(Mp, Z),
                            reps=5, warmup=1)
         # the library's one call on bf16 copies made beforehand (the
@@ -765,32 +779,42 @@ def phase_contract_kernels(report: dict) -> None:
         b = bound(nbytes(Mp, Z, out),
                   2 * Mp.shape[0] * Mp.shape[1] * Z.shape[0] * Z.shape[2],
                   "bf16")
-        print(f"K5 {label}: max_abs_err {err} rel {rel}; kernel {ms} ms, "
-              f"twin {plain_ms} ms, bf16 bmm {lib_ms} ms, bound "
-              f"{b['bound_ms']} ms ({b['bound_by']})")
+        print(f"K5 {label}: max_abs_err {err} rel {rel}; kernel {ms} ms "
+              f"(device, {len(rotation)} stripes in rotation), one call "
+              f"{call_ms} ms, twin {plain_ms} ms, bf16 bmm {lib_ms} ms, "
+              f"bound {b['bound_ms']} ms ({b['bound_by']})")
         if "ms" not in entry:  # the path's shape: one block phase
-            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+            entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **b)
         del Mb, Zb
+    del blocks, small_stripes, whole
 
     entry = report["dual_contract"]
     entry.update(max_abs_err=0.0, launches=0)
-    for T_, n_, m in [(50, 2000, 8), (3, 20, 4)]:
+    # the probe's shape, the ragged n=20 case, m = 40 in slices of 16, 16
+    # and 8, and a ragged n with m = 13
+    for T_, n_, m in [(50, 2000, 8), (3, 20, 4), (50, 2000, 40), (3, 37, 13)]:
         Wp = dc.pad_data(torch.randn(T_, n_, n_, device="cuda",
                                      generator=gen))
         Z = torch.randn(T_, n_, m, device="cuda", generator=gen)
         before = dc.dual_contract_kernel.launches
         row, col = dc.dual_contract_padded(Wp, Z)
+        again = dc.dual_contract_padded(Wp, Z)
         # K6 lies on no path: its launches are these comparison launches
-        # (not the timing loops').
+        # (not the timing loops'), one per 16-column slice of Z
         entry["launches"] += dc.dual_contract_kernel.launches - before
         torch.cuda.synchronize()
+        require(torch.equal(again[0], row) and torch.equal(again[1], col),
+                f"K6's two launches differ at T={T_} n={n_} m={m}")
         row_t, col_t = dc.dual_contract_twin(Wp, Z)
         errs = [rel_err(row, row_t), rel_err(col, col_t)]
         require(all(e[1] <= REL_TOL for e in errs),
                 f"K6 disagrees with its twin at T={T_} n={n_} m={m}")
         entry["max_abs_err"] = max([entry["max_abs_err"]]
                                    + [e[0] for e in errs])
-        ms = cuda_ms(lambda: dc.dual_contract_kernel(Wp, Z))
+        ms = rotating_graph_ms([lambda: dc.dual_contract_kernel(Wp, Z)], 10,
+                               20)
+        call_ms = cuda_ms(lambda: dc.dual_contract_kernel(Wp, Z))
         plain_ms = cuda_ms(lambda: dc.dual_contract_twin(Wp, Z), reps=5,
                            warmup=1)
         Wb = Wp[..., :n_]
@@ -800,11 +824,16 @@ def phase_contract_kernels(report: dict) -> None:
             torch.bmm(Wb.transpose(1, 2), Zb, out_dtype=torch.float32)))
         b = bound(nbytes(Wp, Z, row, col), 2 * 2 * T_ * n_ * n_ * m, "bf16")
         print(f"K6 T={T_} n={n_} m={m}: (max_abs_err, rel) row/col {errs}; "
-              f"kernel {ms} ms, twin {plain_ms} ms, two bf16 bmm {lib_ms} "
-              f"ms, bound {b['bound_ms']} ms ({b['bound_by']})")
+              f"two launches bitwise equal; kernel {ms} ms (device), one "
+              f"call {call_ms} ms, twin {plain_ms} ms, two bf16 bmm {lib_ms}"
+              f" ms, bound {b['bound_ms']} ms ({b['bound_by']})")
         if "ms" not in entry:
-            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
-    require(entry["launches"] == 2, "K6 did not launch")
+            entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **b)
+        del Wp, Wb, row, col, again, row_t, col_t
+    # two launches of each call: one slice each, three at m = 40
+    require(entry["launches"] == 2 * (1 + 1 + 3 + 1), "K6 did not launch "
+            "once per slice")
 
 
 def phase_eta_kernel(report: dict) -> None:

@@ -5,6 +5,7 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
+#include <algorithm>
 #include <limits>
 #include <tuple>
 
@@ -198,6 +199,8 @@ torch::Tensor masked_contract(torch::Tensor M, torch::Tensor Z) {
             n = static_cast<int>(Z.size(0)), K = static_cast<int>(Z.size(2));
   TORCH_CHECK(n <= n_pad && n_pad % 16 == 0,
               "n_pad must be a multiple of 16 and at least n");
+  TORCH_CHECK(static_cast<int64_t>(T) * ((K + 63) / 64) <= 65535,
+              "masked_contract takes T * ceil(K / 64) <= 65535");
   const c10::cuda::CUDAGuard guard(M.device());
   auto out = torch::empty({bs_pad, T, K}, Z.options());
   check_launch(tame_masked_contract(M.data_ptr<int8_t>(), Z.data_ptr<float>(),
@@ -207,30 +210,44 @@ torch::Tensor masked_contract(torch::Tensor M, torch::Tensor Z) {
   return out;
 }
 
-std::tuple<torch::Tensor, torch::Tensor> dual_contract(torch::Tensor W,
-                                                       torch::Tensor Z) {
+void dual_contract(torch::Tensor W, torch::Tensor Z, torch::Tensor row,
+                   torch::Tensor col, int64_t k0) {
   TORCH_CHECK(W.is_cuda() && W.scalar_type() == torch::kBFloat16 &&
                   W.is_contiguous() && W.dim() == 3,
               "W must be a contiguous (T, n, cols_pad) bf16 CUDA tensor");
   check(Z, "Z");
+  check(row, "row");
+  check(col, "col");
   TORCH_CHECK(Z.dim() == 3 && Z.size(0) == W.size(0) && Z.size(1) == W.size(1),
               "Z must be (T, n, m)");
-  TORCH_CHECK(W.numel() <= std::numeric_limits<int>::max(), "W too large");
+  TORCH_CHECK(row.sizes() == Z.sizes() && col.sizes() == Z.sizes(),
+              "row and col must be (T, n, m)");
+  TORCH_CHECK(W.numel() <= std::numeric_limits<int>::max() &&
+                  Z.numel() <= std::numeric_limits<int>::max(),
+              "inputs too large");
   const int T = static_cast<int>(W.size(0)), n = static_cast<int>(W.size(1)),
             cols_pad = static_cast<int>(W.size(2)),
             m = static_cast<int>(Z.size(2));
   TORCH_CHECK(cols_pad >= n && cols_pad % 8 == 0,
               "cols_pad must be a multiple of 8 and at least n");
-  TORCH_CHECK(m <= 16, "dual_contract is built for m <= 16");
+  TORCH_CHECK(T <= 65535, "dual_contract takes T <= 65535");
+  TORCH_CHECK(k0 >= 0 && k0 < m, "k0 must index a column of Z");
+  const int width = static_cast<int>(std::min<int64_t>(16, m - k0));
+  TORCH_CHECK(tame_dual_contract_smem_bytes(n, width) <= kMaxSmemBytes,
+              "dual_contract at n=", n, " needs more than the ", kMaxSmemBytes,
+              " bytes of shared memory a block may use");
   const c10::cuda::CUDAGuard guard(W.device());
-  auto row = torch::empty({T, n, m}, Z.options());
-  auto col = torch::zeros({T, n, m}, Z.options());
   check_launch(tame_dual_contract(W.data_ptr(), Z.data_ptr<float>(),
                                   row.data_ptr<float>(), col.data_ptr<float>(),
-                                  T, n, cols_pad, m,
+                                  T, n, cols_pad, m, static_cast<int>(k0),
                                   at::cuda::getCurrentCUDAStream()),
                "dual_contract");
-  return {row, col};
+}
+
+int64_t dual_contract_smem_bytes(int64_t n, int64_t width) {
+  TORCH_CHECK(n <= std::numeric_limits<int>::max(), "n too large");
+  return static_cast<int64_t>(tame_dual_contract_smem_bytes(
+      static_cast<int>(n), static_cast<int>(width)));
 }
 
 torch::Tensor eta_contract(torch::Tensor W, torch::Tensor Z) {
@@ -276,7 +293,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("masked_contract", &masked_contract,
         "K5: int8 mask stripe @ bf16-rounded feature panel");
   m.def("dual_contract", &dual_contract,
-        "K6: W @ Z and W' @ Z from one pass over bf16 data");
+        "K6: columns k0 .. k0 + 15 of W @ Z and W' @ Z into row and col, "
+        "from one pass over bf16 data");
+  m.def("dual_contract_smem_bytes", &dual_contract_smem_bytes,
+        "shared memory of one K6 block at n for a slice of `width` columns");
   m.def("eta_contract", &eta_contract,
         "K7: per-step W @ bf16(Z) over bf16 (T, N, N) weights, f32 sums");
 }

@@ -84,19 +84,26 @@ size_t tame_fused_smoother_smem_bytes(int d, int warps);
 int tame_fused_smoother_warps(int n, int d);
 
 // K5: out[i, t, k] = sum_j M[t, i, j] bf16(Z[j, t, k]).  M (T, bs_pad,
-// n_pad) int8 with n_pad % 16 == 0 and n <= n_pad; Z (n, T, K) float32;
-// out (bs_pad, T, K) float32, every entry written.
+// n_pad) int8 with n_pad % 16 == 0 and n <= n_pad; Z (n, T, K) float32 with
+// T ceil(K / 64) <= 65535; out (bs_pad, T, K) float32, every entry written.
 cudaError_t tame_masked_contract(const int8_t* M, const float* Z, float* out,
                                  int T, int bs_pad, int n_pad, int n, int K,
                                  cudaStream_t stream);
 
-// K6: row = W Z and col += W' Z per time step, Z rounded to bf16.  W (T, n,
+// K6: row = W Z and col = W' Z per time step for columns k0 .. k0 + 15 of
+// Z (fewer at the end), Z rounded to bf16; a cluster of 8 blocks per time
+// step, a fixed summation order (the same bits on every launch).  W (T, n,
 // cols_pad) bf16 (__nv_bfloat16) with cols_pad % 8 == 0, zero past column
-// n; Z (T, n, m) float32 with m <= 16; row (T, n, m) float32, every entry
-// written; col (T, n, m) float32, zeroed by the caller.
+// n; Z, row and col (T, n, m) float32; every entry of those columns of row
+// and col is written.  cudaErrorInvalidValue where the block's shared
+// memory (tame_dual_contract_smem_bytes) exceeds 227 KB.
 cudaError_t tame_dual_contract(const void* W, const float* Z, float* row,
                                float* col, int T, int n, int cols_pad, int m,
-                               cudaStream_t stream);
+                               int k0, cudaStream_t stream);
+
+// Dynamic shared memory of one K6 block at n for a slice of `width` <= 16
+// columns (bytes; 0 for a width K6 does not take).
+size_t tame_dual_contract_smem_bytes(int n, int width);
 
 // K7: out[t, i, r] = sum_j W[t, i, j] bf16(Z[t, j, r]).  W (T, N, N) bf16
 // (__nv_bfloat16); Z (T, N, R) float32 with 1 <= R <= 16; out (T, N, R)

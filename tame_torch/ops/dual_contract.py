@@ -15,13 +15,18 @@ the columns padded with zeros to a multiple of 8, so each row starts on a
 K6 ``dual_contract`` (``csrc/dual_contract.cu``) replaces
 ``tame/ops/dual_contract.py::_dual_kernel`` (via ``dual_contract_padded``).
 The TPU kernel carries the column sums in its output block across
-sequential grid steps; Hopper blocks run in no order, so K6 adds each row
-tile's column partials into a zeroed float32 output with ``atomicAdd``:
-``ceil(n / 128)`` partial sums per entry, added in an order that changes
-from run to run, so results differ between runs at float32 rounding
-(~1e-6 relative at n=2000).  Its plain twin, :func:`dual_contract_twin`,
-is the bf16-rounded reference of ``tests/test_inference.py``: two float32
-einsums.
+sequential grid steps; Hopper blocks run in no order, so K6 gives each time
+step a cluster of :data:`CLUSTER` blocks, each owning a stripe of 64-row
+tiles, and sums the column partials of each 128-column chunk over the
+cluster's blocks in rank order through distributed shared memory.  Both
+products run on the tensor cores from one staged bf16 tile; no atomics, so
+a launch gives the same bits every time.  A launch takes up to
+:data:`SLICE` columns of ``Z``; the wrapper launches once per slice, so any
+``m`` is taken (``W`` is read once per slice).  :func:`launch_layout`
+mirrors the kernel's grid, cluster and shared memory, which grows with
+``n``; the wrapper refuses an ``n`` whose block would exceed 227 KB.  Its
+plain twin, :func:`dual_contract_twin`, is the bf16-rounded reference of
+``tests/test_inference.py``: two float32 einsums.
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches K6 or
 raises.  Nothing falls back.
@@ -37,7 +42,12 @@ from tame_torch.ops import _ext
 from tame_torch.ops.cholesky import _on_card
 
 COL_ALIGN = 8   # bf16 values per 16-byte load
-MAX_M = 16      # widest panel the kernel is built for
+SLICE = 16      # columns of Z per launch
+CLUSTER = 8     # blocks per time step
+ROW_TILE = 64   # rows per staged tile
+CHUNK = 128     # columns per staged tile
+STAGES = 3      # depth of the tile ring
+MAX_SMEM_BYTES = 232448  # 227 KB per block on sm_90
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -64,6 +74,40 @@ def _check(Wp: torch.Tensor, Z: torch.Tensor) -> None:
                          f"{tuple(Z.shape)}")
 
 
+def slices(m: int) -> list:
+    """``(k0, width)`` of each launch over a panel of ``m`` columns."""
+    return [(k0, min(SLICE, m - k0)) for k0 in range(0, m, SLICE)]
+
+
+def smem_bytes(n: int, width: int) -> int:
+    """Dynamic shared memory of one K6 block at ``n`` for a slice of
+    ``width`` columns (``tame_dual_contract_smem_bytes``): the tile ring,
+    two chunks' and the stripe's bf16 Z rows, two chunks' column partials
+    and the stripe's float32 row sums."""
+    mp = 8 if width <= 8 else 16
+    zp = 24 if mp == 16 else 8   # bf16 per staged Z row
+    rows = -(-(-(-n // ROW_TILE)) // CLUSTER) * ROW_TILE
+    return (STAGES * ROW_TILE * CHUNK * 2 + 2 * CHUNK * zp * 2
+            + rows * zp * 2 + 2 * CHUNK * mp * 4 + rows * 16 * 4)
+
+
+def launch_layout(T: int, n: int, m: int) -> dict:
+    """K6's launches for ``(T, n, m)``: per slice a grid of
+    ``(CLUSTER, T)`` blocks in clusters of ``CLUSTER`` and the block's
+    shared memory."""
+    return {"grid": (CLUSTER, T), "cluster": CLUSTER,
+            "slices": slices(m),
+            "smem_bytes": [smem_bytes(n, w) for _, w in slices(m)]}
+
+
+def _check_launch(T: int, n: int, m: int) -> None:
+    if T > 65535:
+        raise ValueError(f"K6 takes T <= 65535, got {T}")
+    if m and max(launch_layout(T, n, m)["smem_bytes"]) > MAX_SMEM_BYTES:
+        raise ValueError(f"K6 at n={n} needs more than the {MAX_SMEM_BYTES}"
+                         f" bytes of shared memory a block may use")
+
+
 def dual_contract_twin(Wp: torch.Tensor, Z: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of K6 (same contract): the bf16 data and ``Z``
@@ -78,15 +122,19 @@ def dual_contract_twin(Wp: torch.Tensor, Z: torch.Tensor
 
 def dual_contract_kernel(Wp: torch.Tensor, Z: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6 on CUDA tensors: Wp (T, n, cols_pad) bf16, Z (T, n, m)
-    float32 with m <= 16 -> (row, col), each (T, n, m) float32."""
+    """Launch K6 on CUDA tensors, once per :data:`SLICE` columns of ``Z``:
+    Wp (T, n, cols_pad) bf16, Z (T, n, m) float32 -> (row, col), each
+    (T, n, m) float32."""
     _check(Wp, Z)
-    if Z.shape[-1] > MAX_M:
-        raise ValueError(f"K6 is built for m <= {MAX_M}, got {Z.shape[-1]}")
     if Z.device != Wp.device:
         raise ValueError("all inputs must be on one device")
-    row, col = _ext.load().dual_contract(Wp.contiguous(), Z.contiguous())
-    dual_contract_kernel.launches += 1
+    _check_launch(*Z.shape)
+    Wp, Z = Wp.contiguous(), Z.contiguous()
+    row, col = torch.empty_like(Z), torch.empty_like(Z)
+    ext = _ext.load()
+    for k0, _ in slices(Z.shape[-1]):
+        ext.dual_contract(Wp, Z, row, col, k0)
+        dual_contract_kernel.launches += 1
     return row, col
 
 

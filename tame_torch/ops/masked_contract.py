@@ -18,8 +18,14 @@ It reads the caller's float32 ``(n, T, K)`` panel in place and rounds it
 to bf16 as it stages it, instead of padding it to a ``(T, n_pad, 128)``
 bf16 copy on every call (the copy the JAX docstring names as why the TPU
 kernel lost), and writes ``(bs_pad, T, K)`` directly, so nothing is
-transposed afterwards.  What bounds it and what its design does about it:
-see the source's note.  Its plain twin,
+transposed afterwards.  Each output's arithmetic is fixed (four
+partner-quarter accumulators, each fed the same ``mma.sync`` steps in the
+same order, summed ((q0 + q1) + q2) + q3), so its bits do not depend on
+the schedule: a cluster of four blocks per (128-row tile, t, 64-column
+tile), block rank q running quarter q of every 128-partner chunk, fed by a
+ring of ``cp.async`` stages (:func:`launch_layout` mirrors the grid).
+What bounds it and what its design does about it: see the source's note.
+Its plain twin,
 :func:`packed_rows_contract_twin`, is the same function in f32 PyTorch.
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches K5 or
@@ -34,6 +40,14 @@ from tame_torch.ops import _ext
 from tame_torch.ops.cholesky import _on_card
 
 COL_ALIGN = 16  # partners per 16-byte int8 load
+QUARTERS = 4    # blocks per cluster, one per partner quarter
+ROW_TILE = 128  # mask rows per block
+COL_TILE = 64   # panel columns per block
+STAGES = 3      # raw steps in the cp.async ring
+MASK_PITCH = 48   # bytes per raw mask row (32 partners + pad)
+PANEL_PITCH = 68  # floats per raw panel row (64 columns + pad)
+FRAG_PITCH = 80   # bytes per bf16 fragment-tile row (32 partners + pad)
+MAX_SMEM_BYTES = 232448  # 227 KB per block on sm_90
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -66,6 +80,23 @@ def _check_stripe(Mp: torch.Tensor, Z: torch.Tensor) -> None:
                          f"{tuple(Z.shape)}")
 
 
+def smem_bytes() -> int:
+    """K5's dynamic shared memory per block (``smem_bytes`` in the source):
+    the ring of raw (mask, panel) steps of one partner quarter, which the
+    quarter sums reuse, and two bf16 fragment tiles."""
+    return (STAGES * (ROW_TILE * MASK_PITCH + 32 * PANEL_PITCH * 4)
+            + 2 * (ROW_TILE + COL_TILE) * FRAG_PITCH)
+
+
+def launch_layout(T: int, bs_pad: int, K: int) -> dict:
+    """K5's launch for one stripe: the grid (partner quarter, 128-row tile,
+    t and 64-column tile), clusters of :data:`QUARTERS` along its first
+    axis, and the block's shared memory."""
+    return {"grid": (QUARTERS, -(-bs_pad // ROW_TILE),
+                     T * -(-K // COL_TILE)),
+            "cluster": QUARTERS, "smem_bytes": smem_bytes()}
+
+
 def packed_rows_contract_twin(Mp: torch.Tensor,
                               Z: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin of K5 (same contract): the int8 mask as float
@@ -83,6 +114,8 @@ def packed_rows_contract_kernel(Mp: torch.Tensor,
     _check_stripe(Mp, Z)
     if Z.device != Mp.device:
         raise ValueError("all inputs must be on one device")
+    if launch_layout(Mp.shape[0], Mp.shape[1], Z.shape[2])["grid"][2] > 65535:
+        raise ValueError("K5 takes T * ceil(K / 64) <= 65535")
     out = _ext.load().masked_contract(Mp.contiguous(), Z.contiguous())
     packed_rows_contract_kernel.launches += 1
     return out

@@ -206,18 +206,19 @@ def compare_bits(mine: dict, theirs: dict) -> dict:
             for shape, outs in mine.items()}
 
 
-def res_usage(root: pathlib.Path) -> list[dict]:
+def res_usage(root: pathlib.Path, source: str = "spd.cu") -> list[dict]:
     """Registers, stack and spills of each kernel of ``root``'s
-    ``csrc/spd.cu``, from ``nvcc -Xptxas -v`` on that file alone."""
+    ``csrc/<source>``, from ``nvcc -Xptxas -v`` on that file alone."""
     from tame_torch.ops import _ext
 
     csrc = root / "tame_torch" / "csrc"
-    out_dir = root / "build" / "spd_res_usage"
+    stem = pathlib.Path(source).stem
+    out_dir = root / "build" / f"{stem}_res_usage"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     proc = subprocess.run(
         [nvcc, *_ext.CUDA_FLAGS, "-Xptxas", "-v", "-I", str(csrc), "-c",
-         str(csrc / "spd.cu"), "-o", str(out_dir / "spd.o")],
+         str(csrc / source), "-o", str(out_dir / f"{stem}.o")],
         capture_output=True, text=True, check=True)
     demangle = shutil.which("c++filt")
     rows, name = [], None

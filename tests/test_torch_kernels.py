@@ -438,7 +438,8 @@ def _max_rel(got, ref):
 
 
 @pytest.mark.parametrize("n,T,K,nb", [(20, 3, 5, 4), (2000, 50, 57, 16),
-                                      (300, 7, 70, 1)])
+                                      (300, 7, 70, 1), (37, 4, 65, 1),
+                                      (400, 3, 130, 2)])
 def test_masked_contract_matches_twin(cuda_device, n, T, K, nb):
     g = torch.Generator(device=cuda_device).manual_seed(n + K)
     mask = (torch.rand(n, n, T, device=cuda_device, generator=g) > 0.3)
@@ -453,7 +454,8 @@ def test_masked_contract_matches_twin(cuda_device, n, T, K, nb):
     assert tmc.packed_rows_contract_kernel.launches == before + nb
 
 
-@pytest.mark.parametrize("T,n,m", [(3, 20, 4), (50, 2000, 8), (2, 37, 13)])
+@pytest.mark.parametrize("T,n,m", [(3, 20, 4), (50, 2000, 8), (2, 37, 13),
+                                   (4, 2000, 40), (3, 37, 40), (2, 300, 17)])
 def test_dual_contract_matches_twin(cuda_device, T, n, m):
     g = torch.Generator(device=cuda_device).manual_seed(n + m)
     y0 = torch.randn(T, n, n, device=cuda_device, generator=g)
@@ -461,10 +463,39 @@ def test_dual_contract_matches_twin(cuda_device, T, n, m):
     Wp = tdc.pad_data(y0)
     before = tdc.dual_contract_kernel.launches
     row, col = tdc.dual_contract_padded(Wp, Z)
-    assert tdc.dual_contract_kernel.launches == before + 1
+    # one launch per 16-column slice of Z
+    assert tdc.dual_contract_kernel.launches == before + -(-m // 16)
     row_t, col_t = tdc.dual_contract_twin(Wp, Z)
     assert _max_rel(row, row_t) <= CONTRACT_REL
     assert _max_rel(col, col_t) <= CONTRACT_REL
+
+
+@pytest.mark.parametrize("T,n,m", [(50, 2000, 8), (3, 37, 13), (2, 300, 40)])
+def test_dual_contract_is_deterministic(cuda_device, T, n, m):
+    """No atomics: two launches on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 * n + m)
+    Wp = tdc.pad_data(torch.randn(T, n, n, device=cuda_device, generator=g))
+    Z = torch.randn(T, n, m, device=cuda_device, generator=g)
+    row, col = tdc.dual_contract_padded(Wp, Z)
+    again = tdc.dual_contract_padded(Wp, Z)
+    assert torch.equal(row, again[0]) and torch.equal(col, again[1])
+
+
+def test_contract_layouts_match_kernels(cuda_device):
+    """The Python mirror of K6's shared memory is the binding's, and the
+    wrapper refuses an n whose block would not fit."""
+    from tame_torch.ops import _ext
+
+    ext = _ext.load()
+    for n in (1, 20, 37, 300, 2000, 4097, 10752):
+        for width in (1, 8, 9, 16):
+            assert ext.dual_contract_smem_bytes(n, width) == \
+                tdc.smem_bytes(n, width)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdc.dual_contract_padded(
+            torch.zeros(1, 11000, 11000, dtype=torch.bfloat16,
+                        device=cuda_device),
+            torch.zeros(1, 11000, 16, device=cuda_device))
 
 
 def test_packed_masked_fit_runs_through_k5(cuda_device, monkeypatch):

@@ -17,6 +17,7 @@ import torch
 from tame_torch.scripts import (
     bench,
     block_count_probe,
+    contract_probe,
     em_scale_probe,
     fused_block_probe,
     jacobi_scale_probe,
@@ -184,6 +185,38 @@ def test_spd_probe_compares_outputs_bit_for_bit():
                                                         "logdet": True}}
     assert spd_probe.compare_bits(a, b) == {"d=4 B=3": {"mu": 0.25,
                                                         "logdet": True}}
+
+
+def test_contract_probe_times_the_twins(tmp_path, capsys):
+    out, bits = tmp_path / "contract.json", tmp_path / "bits.pt"
+    res = contract_probe.main(CPU + ["--n", "32", "--T", "2", "--k6", "2,20,4",
+                                     "2,37,40", "--repeats", "1", "--tag",
+                                     "cpu", "--out", str(out), "--bits-out",
+                                     str(bits), "--bits-against", str(bits)])
+    assert [(r["T"], r["n"], r["m"]) for r in res["k6"]] == [(2, 20, 4),
+                                                             (2, 37, 40)]
+    assert [r["case"] for r in res["k5"]] == [
+        "n=32 bs=2 K=57", "n=32 bs=2 K=56", "n=20 T=3 K=5 nb=4",
+        "n=32 one stripe K=57"]
+    assert [r["stripes"] for r in res["k5"]] == [16, 16, 4, 1]
+    assert all(r["twin_host_ms"] > 0 and "ms" not in r
+               for r in res["k6"] + res["k5"])
+    # the same tree against itself: every output equal bit for bit
+    assert all(v is True for case in res["bits"].values()
+               for v in case.values())
+    assert len(res["bits"]) == 6
+    assert json.loads(out.read_text()) == res
+    assert "cpu K5" in capsys.readouterr().out
+
+
+def test_contract_probe_compares_outputs_bit_for_bit():
+    a = {"K5 x": {"stripe 0": torch.tensor([1.0, 2.0])},
+         "K6 y": {"row": torch.tensor([0.5]), "col": torch.tensor([3.0])}}
+    b = {"K5 x": {"stripe 0": torch.tensor([1.0, 2.5])}}
+    assert contract_probe.compare_bits(a, a) == {
+        "K5 x": {"stripe 0": True}, "K6 y": {"row": True, "col": True}}
+    # a case the other tree did not save (an m its K6 refused) is left out
+    assert contract_probe.compare_bits(a, b) == {"K5 x": {"stripe 0": 0.5}}
 
 
 def test_scripts_need_the_card_unless_asked_for_the_cpu():
