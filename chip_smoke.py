@@ -53,9 +53,22 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 11. an r = 6 (d = 14) Good-SMF fit and smoothed fit at n=2000, T=50, 20
     iterations each, through K1/K2 and K4 at d = 14;
 12. the benchmark ``tame_torch.scripts.bench`` with 32 demo fits and 2
-    repeats (its n=2000 legs at full size), which prints its JSON line.
+    repeats (its n=2000 legs at full size), which prints its JSON line;
+13. the seq sweep (``update_mode="seq"``) at the demo shape for the three
+    structures, each held to the same fit on the CPU (the K1/K2 twins)
+    at every iteration, with n T K1 launches of one system per iteration;
+14. checkpointed fits that resume bit for bit: the demo's Good-SMF fit
+    through K3 (one launch per segment), the n=2000 Good-SMF fit through
+    K1/K2 and the n=2000 warm smoothed fit through K4, each first run
+    twice in one shot (the two runs must agree bit for bit), then killed
+    after a checkpoint and resumed by a fresh engine, which must give the
+    one-shot fit's bits; the checkpoints must be in the native
+    ``tamestore`` format;
+15. the forecasts (``predict_forward_with_cov``, ``predict_dyads``) at
+    H=5 from the n=2000 fit's state, against the same functions on a CPU
+    copy of it.
 
-Each of phases 3-12 is a path of its own (phases 7 and 11 several): the
+Each of phases 3-15 is a path of its own (phases 7, 11, 13 and 14 several): the
 launch counters are zeroed just before it and read just after, and each
 path must have launched its kernels.  K6 lies on no path: its
 ``launches`` are its comparison launches in phase 2.  The second-to-last
@@ -539,12 +552,9 @@ def phase_fused_fit(report: dict) -> None:
 
 
 def phase_demo() -> None:
-    from tame_torch import (TemporalAMEModel, TemporalAMENaiveMFVI,
-                            TemporalAMEStructuredMFVI)
+    from tame_torch import TemporalAMENaiveMFVI, TemporalAMEStructuredMFVI
 
-    model = TemporalAMEModel(n_nodes=15, n_time=10, latent_dim=2, seed=42)
-    model.generate_data(generator=torch.Generator().manual_seed(42),
-                        device="cuda")
+    model = demo_model("cuda")
     mse = {}
     for name, vi in [
             ("naive", TemporalAMENaiveMFVI(model, learning_rate=0.7)),
@@ -566,10 +576,9 @@ def phase_demo() -> None:
 
 
 def phase_real_size() -> None:
-    from tame_torch import TemporalAMEModel, TemporalAMEStructuredMFVI
+    from tame_torch import TemporalAMEStructuredMFVI
 
-    model = TemporalAMEModel(n_nodes=2000, n_time=50, latent_dim=4, seed=0)
-    model.generate_data(generator=torch.Generator(device="cuda").manual_seed(0))
+    model = north_star_model()
     vi = TemporalAMEStructuredMFVI(model, factorization="good",
                                    learning_rate=0.8)
     torch.cuda.synchronize()
@@ -598,11 +607,9 @@ def phase_real_size() -> None:
 
 def phase_smoothed() -> int:
     """Returns the number of iterations run."""
-    from tame_torch import TemporalAMEModel, TemporalAMESmoothedVI
+    from tame_torch import TemporalAMESmoothedVI
 
-    model = TemporalAMEModel(n_nodes=2000, n_time=50, latent_dim=4, seed=0)
-    model.generate_data(
-        generator=torch.Generator(device="cuda").manual_seed(0))
+    model = north_star_model()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -961,12 +968,7 @@ def mse_split(Y: torch.Tensor, X_mean: torch.Tensor, mask: torch.Tensor):
 
 
 def masked_model():
-    from tame_torch import TemporalAMEModel
-
-    model = TemporalAMEModel(n_nodes=2000, n_time=50, latent_dim=4, seed=0)
-    model.generate_data(
-        generator=torch.Generator(device="cuda").manual_seed(0))
-    return model, hidden_dyads(2000, 50)
+    return north_star_model(), hidden_dyads(2000, 50)
 
 
 def masked_fit(model, mask, fit_mask, packed: bool, max_iter: int = 200,
@@ -1027,6 +1029,197 @@ def phase_masked_smoothed(model, mask) -> int:
     require(held < 2.0 * obs + 0.05, "masked smoothed fit does not "
             "recover the held-out dyads")
     return n_iter
+
+
+# ---------------------------------------------------------------------------
+# The seq sweep, checkpointed fits and forecasts
+# ---------------------------------------------------------------------------
+
+SEQ_ELBO_RTOL = 1e-4  # card vs CPU seq fit: f32 sums in another order
+FORECAST_RTOL = 1e-5  # card vs CPU forecast: a few f32 products
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+SEQ_MS: dict = {}
+CKPT: dict = {}
+
+
+def demo_model(device: str):
+    """The demo drive's data (``TemporalAMEModel(15, 10, 2, seed=42)``
+    drawn from a CPU generator) on ``device``."""
+    from tame_torch import TemporalAMEModel
+
+    model = TemporalAMEModel(n_nodes=15, n_time=10, latent_dim=2, seed=42,
+                             device="cpu")
+    model.generate_data(generator=torch.Generator().manual_seed(42),
+                        device=device)
+    return model
+
+
+def seq_engines(model):
+    from tame_torch import TemporalAMENaiveMFVI, TemporalAMEStructuredMFVI
+
+    return [("naive", TemporalAMENaiveMFVI(model, learning_rate=0.7,
+                                           update_mode="seq")),
+            ("good", TemporalAMEStructuredMFVI(
+                model, factorization="good", learning_rate=0.7,
+                update_mode="seq")),
+            ("bad", TemporalAMEStructuredMFVI(
+                model, factorization="bad", learning_rate=0.7,
+                update_mode="seq"))]
+
+
+def phase_seq(name: str):
+    """One seq fit (150 iterations at most) at the demo shape on the card,
+    held to the same fit on the CPU from the same data and init; returns
+    (its iterations, its final MSE, whether it diverged)."""
+    card = dict(seq_engines(demo_model("cuda")))[name]
+    cpu = dict(seq_engines(demo_model("cpu")))[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = card.fit(max_iter=150, verbose=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(h["elbo"])
+    hc = cpu.fit(max_iter=150, verbose=False)
+    m = min(len(h["elbo"]), len(hc["elbo"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(h["elbo"][:m],
+                                                  hc["elbo"][:m]))
+    SEQ_MS[name] = ms
+    print(f"seq {name} (n=15 T=10 r=2, lr 0.7): card {len(h['elbo'])} "
+          f"iterations (converged {card._converged}, diverged "
+          f"{card._diverged}), CPU {len(hc['elbo'])} iterations; ELBO "
+          f"{h['elbo'][-1]} (CPU {hc['elbo'][-1]}), MSE "
+          f"{h['reconstruction_error'][-1]}; max relative ELBO difference "
+          f"over {m} iterations {rel}; {ms} ms/iteration on the card (host "
+          f"clock)")
+    require(rel <= SEQ_ELBO_RTOL, f"seq {name} on the card departs from the "
+            f"CPU fit: {rel}")
+    require(all(math.isfinite(v) for v in h["elbo"]) or card._diverged,
+            f"seq {name} history not finite")
+    return len(h["elbo"]), h["reconstruction_error"][-1], card._diverged
+
+
+def _bitwise(label: str, a, b) -> None:
+    """Require two engines' histories and states bit for bit equal."""
+    require(a.history == b.history, f"{label}: histories differ")
+    for name in a.state_dict():
+        require(torch.equal(getattr(a, name), getattr(b, name)),
+                f"{label}: {name} differs")
+
+
+def killed_and_resumed(make, label: str, total: int, every: int,
+                       kill: int, counter=None):
+    """The one-shot fit twice (bit for bit equal), then a fit killed after
+    ``kill`` iterations in segments of ``every`` and resumed to ``total``
+    by a fresh engine, which must give the one-shot bits.  Returns the
+    resumed engine and, given ``counter`` (a kernel wrapper), its launches
+    in the killed and the resumed fit."""
+    import shutil
+
+    ref = [make() for _ in range(2)]
+    for vi in ref:
+        vi.fit(max_iter=total, tolerance=0.0, verbose=False)
+    _bitwise(f"{label}: two one-shot fits", ref[0], ref[1])
+    ckpt = CKPT_DIR / label.replace(" ", "_")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    before = counter.launches if counter is not None else 0
+    make().fit(max_iter=kill, tolerance=0.0, verbose=False,
+               checkpoint_every=every, ckpt_dir=ckpt)
+    vi = make()
+    vi.fit(max_iter=total, tolerance=0.0, verbose=False,
+           checkpoint_every=every, ckpt_dir=ckpt, resume=True)
+    launches = counter.launches - before if counter is not None else None
+    require(len(vi.history["elbo"]) == total, f"{label}: resumed fit ran "
+            f"{len(vi.history['elbo'])} iterations, not {total}")
+    _bitwise(f"{label}: killed at {kill} and resumed", vi, ref[0])
+    manifest = json.loads((ckpt / "manifest.json").read_text())
+    require(manifest["format"] == "tamestore",
+            f"{label}: checkpoint written as {manifest['format']}")
+    print(f"{label}: two one-shot fits of {total} iterations bit for bit "
+          f"equal; killed after {kill} (segments of {every}), resumed to "
+          f"{total}: bit for bit the one-shot fit (history, "
+          f"{', '.join(vi.state_dict())}); checkpoint format "
+          f"{manifest['format']}")
+    return vi, launches
+
+
+def phase_ckpt_k3() -> None:
+    """The demo's Good-SMF fit (15 blocks) killed at 10 and resumed to 20
+    in segments of 5: one K3 launch per segment."""
+    from tame_torch import TemporalAMEStructuredMFVI
+    from tame_torch.ops import fused_fit as ff
+
+    model = demo_model("cuda")
+    _, launches = killed_and_resumed(
+        lambda: TemporalAMEStructuredMFVI(model, learning_rate=0.7),
+        "checkpointed demo Good SMF (K3)", 20, 5, 10, ff.fused_fit_kernel)
+    print(f"checkpointed demo: {launches} K3 launches in the killed and the "
+          f"resumed fit")
+    require(launches == 4, f"the killed and resumed demo fit launched K3 "
+            f"{launches} times, not once per segment (4)")
+
+
+def north_star_model():
+    from tame_torch import TemporalAMEModel
+
+    model = TemporalAMEModel(n_nodes=2000, n_time=50, latent_dim=4, seed=0)
+    model.generate_data(
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def phase_ckpt_unfused(model):
+    """The n=2000 Good-SMF fit (16 blocks, exact diagnostics) killed at
+    20 and resumed to 30 in segments of 10; then one synchronous save of
+    its state, timed."""
+    from tame_torch import TemporalAMEStructuredMFVI
+
+    vi, _ = killed_and_resumed(
+        lambda: TemporalAMEStructuredMFVI(model, learning_rate=0.8),
+        "checkpointed n=2000 Good SMF (K1/K2)", 30, 10, 20)
+    path = CKPT_DIR / "n2000_save"
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vi.save_checkpoint(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    mb = sum(f.stat().st_size for f in path.iterdir()) / 1e6
+    CKPT.update(save_ms=times, size_mb=mb)
+    print(f"n=2000 T=50 r=4 checkpoint: {mb} MB, save {times} ms (host "
+          f"clock: device to host, CRC32 and write)")
+    return vi
+
+
+def phase_ckpt_smoothed(model):
+    from tame_torch import TemporalAMESmoothedVI
+
+    killed_and_resumed(
+        lambda: TemporalAMESmoothedVI(model, init_mode="warm",
+                                      learning_rate=0.8),
+        "checkpointed n=2000 smoothed (K4)", 12, 4, 8)
+
+
+def phase_forecast(vi) -> None:
+    """H=5 forecasts from the n=2000 fit on the card against the same
+    functions on a CPU copy of its last states."""
+    from tame_torch.inference.engine import forecast_dyads, forecast_states
+
+    mus, covs = vi.predict_forward_with_cov(5)
+    mean, std = vi.predict_dyads(5)
+    torch.cuda.synchronize()
+    p = vi.params.to("cpu")
+    cmus, ccovs = forecast_states(vi.X_mean[:, -1].cpu(),
+                                  vi.X_cov[:, -1].cpu(), p, 5)
+    cmean, cstd = forecast_dyads(cmus, ccovs, p.R)
+    errs = {k: rel_err(a.cpu(), b)[1] for k, a, b in [
+        ("means", mus, cmus), ("covs", covs, ccovs), ("dyad mean", mean,
+                                                      cmean),
+        ("dyad std", std, cstd)]}
+    print(f"forecast n=2000 H=5: relative difference card vs CPU {errs}; "
+          f"std {std.min().item()} .. {std.max().item()}")
+    require(all(e <= FORECAST_RTOL for e in errs.values()),
+            f"the card's forecast departs from the CPU's: {errs}")
+    require(bool(torch.isfinite(std).all() and (std > 0).all()),
+            "forecast std not finite and positive")
 
 
 def main() -> int:
@@ -1164,7 +1357,53 @@ def main() -> int:
     require(bench["spd_solve_inv"] > 0 and bench["logdet_spd"] > 0
             and bench["fused_smoother"] > 0,
             "the bench n=2000 legs did not run K1, K2 and K4")
+
+    from tame_torch.io import native
+
+    require(native.available(), "the native checkpoint store did not build")
+    seq = {}
+    for name in ("naive", "good", "bad"):
+        seq[name], counts = drive(f"seq {name} (demo shape)", phase_seq, name)
+        n_iter = seq[name][0]
+        require(counts["spd_solve_inv"] == 15 * 10 * n_iter
+                and counts["logdet_spd"] == n_iter
+                and counts["fused_fit"] == 0,
+                f"seq {name} did not launch K1 n T times and K2 once per "
+                f"iteration: {counts}")
+    (_, naive, _), (_, good, _), (_, bad, bad_div) = (seq["naive"],
+                                                      seq["good"], seq["bad"])
+    require(naive < 0.5 and good < 0.5 and abs(naive - good) < 0.05,
+            f"seq: Naive and Good did not reach a low, equal MSE: {seq}")
+    require(bad_div or (bad > 1.0 and bad > 3.0 * good),
+            f"seq: Bad SMF did not diverge or stay worse: {seq}")
+    print(f"seq ms/iteration on the card: {SEQ_MS}")
+
+    _, ck3 = drive("checkpointed demo (K3)", phase_ckpt_k3)
+    # the two one-shot fits' 1 each, the killed fit's 2 segments and the
+    # resumed fit's 2
+    require(ck3["fused_fit"] == 2 + 4 and ck3["spd_solve_inv"] == 0,
+            f"the checkpointed demo fit did not run one K3 launch per "
+            f"segment: {ck3}")
+    model = north_star_model()
+    vi, ckun = drive("checkpointed n=2000 Good SMF", phase_ckpt_unfused,
+                     model)
+    # two one-shot fits of 30, the killed 20, the resumed 10
+    require(ckun["spd_solve_inv"] == 16 * 90 and ckun["logdet_spd"] == 90
+            and ckun["fused_fit"] == 0, f"the checkpointed n=2000 fit did "
+            f"not run 16 K1 and 1 K2 launches per iteration: {ckun}")
+    drive("forecast n=2000 H=5", phase_forecast, vi)
+    del vi
+    _, cksm = drive("checkpointed n=2000 smoothed", phase_ckpt_smoothed,
+                    model)
+    # two one-shot fits of 12, the killed 8, the resumed 4
+    require(cksm["fused_smoother"] == 16 * 36, f"the checkpointed smoothed "
+            f"fit did not launch K4 16 times per iteration: {cksm}")
+    del model
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     k4 = report["fused_smoother"]
+    print(f"seq ms/iteration {SEQ_MS}; n=2000 checkpoint {CKPT}")
     print(f"K4 n=125 d=10 {k4['ms']} ms, n=125 d=14 {k4['ms_d14']} ms, "
           f"n=2000 d=10 {k4['ms_n2000']} ms; same run: {K4_PATHS}")
     launches = {k: sum(c[k] for c in paths) for k in wrappers}

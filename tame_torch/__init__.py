@@ -1,7 +1,8 @@
 """tame_torch — the temporal-AME inference engine on PyTorch and CUDA.
 
 The port of :mod:`tame` (JAX on a TPU) to PyTorch on an NVIDIA H100.  Its
-layout mirrors ``tame/`` (``config``, ``models``, ``ops``, ``inference``);
+layout mirrors ``tame/`` (``config``, ``models``, ``ops``, ``inference``,
+``io``, ``utils``);
 it imports ``torch`` and numpy and never JAX.  Tensors are float32 and
 carry their own device; randomness comes from explicit
 ``torch.Generator`` objects.  The hand-written Hopper kernels
@@ -39,7 +40,11 @@ from tame_torch.inference import (  # noqa: E402
     fit_em,
     warm_init_smoothed_state,
 )
-from tame_torch.models import BaseAMEModel, TemporalAMEModel  # noqa: E402
+from tame_torch.models import (  # noqa: E402
+    BaseAMEModel,
+    StaticAMEModel,
+    TemporalAMEModel,
+)
 
 __version__ = "0.1.0"
 
@@ -47,6 +52,7 @@ __all__ = [
     "ModelConfig",
     "InferenceConfig",
     "BaseAMEModel",
+    "StaticAMEModel",
     "TemporalAMEModel",
     "TemporalAMECaviVI",
     "TemporalAMENaiveMFVI",

@@ -52,9 +52,8 @@ class InferenceConfig:
 
     ``learning_rate`` damps the coordinate update:
     new = lr * closed_form + (1 - lr) * old.  ``update_mode`` is
-    ``"jacobi"`` (all factors at once) or ``"block"`` (block Gauss-Seidel,
-    the default); ``"seq"`` is accepted here for parity with
-    :mod:`tame.config` but the port's fit does not run it yet.
+    ``"jacobi"`` (all factors at once), ``"block"`` (block Gauss-Seidel,
+    the default) or ``"seq"`` (the reference's node-by-node sweep).
     ``diag_mode`` is ``"exact"`` or ``"stats"`` (sufficient statistics).
     """
 

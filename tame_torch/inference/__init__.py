@@ -1,8 +1,20 @@
-"""Variational inference engines (counterpart of :mod:`tame.inference`)."""
+"""Variational inference engines (counterpart of :mod:`tame.inference`;
+the samplers and the non-Gaussian families are not ported yet)."""
 
 from tame_torch.inference import cavi
+from tame_torch.inference.cavi import (
+    CaviState,
+    FitResult,
+    cavi_step_jacobi,
+    cavi_step_seq,
+    compute_elbo,
+    fit_cavi,
+    init_state,
+)
 from tame_torch.inference.em import EMResult, em_update_params, fit_em
 from tame_torch.inference.engine import (
+    BaseTemporalVariationalInference,
+    BaseVariationalInference,
     TemporalAMECaviVI,
     TemporalAMENaiveMFVI,
     TemporalAMEStructuredMFVI,
@@ -16,6 +28,15 @@ from tame_torch.inference.smoothed import (
 
 __all__ = [
     "cavi",
+    "CaviState",
+    "FitResult",
+    "cavi_step_jacobi",
+    "cavi_step_seq",
+    "compute_elbo",
+    "fit_cavi",
+    "init_state",
+    "BaseVariationalInference",
+    "BaseTemporalVariationalInference",
     "TemporalAMECaviVI",
     "TemporalAMENaiveMFVI",
     "TemporalAMEStructuredMFVI",

@@ -713,6 +713,43 @@ def cavi_step_block(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
     return CaviState(X_mean=X_mean, X_cov=X_cov)
 
 
+def cavi_step_seq(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
+                  params: AMEParams, structure: str, lr: float) -> CaviState:
+    """Gauss-Seidel sweep in the reference's order: nodes in order, times
+    in order within a node, each update reading the freshest means.  Node
+    i's observation terms come from the state as it stands before node i;
+    step t then adds the prior coupling to the just-updated step t-1 and
+    the not yet updated step t+1, so the n T solves run one at a time (one
+    K1 launch each on the card).  Works on a copy of ``state``, updated in
+    place."""
+    n, T, d = state.X_mean.shape
+    r = (d - 2) // 2
+    solver = _SOLVERS[structure]
+    prior_P = _prior_precision(pri, T)                        # (T, d, d)
+    X_mean, X_cov = state.X_mean.clone(), state.X_cov.clone()
+    for i in range(n):
+        _, _, U, V = dyad_ops.split_state(X_mean, r)
+        Ui, Vi = U[i], V[i]                                   # (T, r)
+        P = _P_from_partner_stats(
+            float(n - 1), (U.sum(0) - Ui)[None], (V.sum(0) - Vi)[None],
+            (_gram(U, U) - _outer(Ui, Ui))[None],
+            (_gram(V, V) - _outer(Vi, Vi))[None],
+            (_gram(V, U) - _outer(Vi, Ui))[None], params.R_inv)[0] + prior_P
+        eta_obs = torch.cat([obs.eta_a[i][:, None], obs.eta_b[i][:, None],
+                             torch.einsum("jt,jtr->tr", obs.W0[i], V),
+                             torch.einsum("jt,jtr->tr", obs.W1[i], U)], -1)
+        for t in range(T):
+            eta = eta_obs[t]
+            if t > 0:
+                eta = eta + X_mean[i, t - 1] @ pri.Qinv_Phi.T
+            if t < T - 1:
+                eta = eta + X_mean[i, t + 1] @ pri.Qinv_Phi
+            mu_new, cov_new = solver(P[t], eta)
+            X_mean[i, t] = lr * mu_new + (1.0 - lr) * X_mean[i, t]
+            X_cov[i, t] = lr * cov_new + (1.0 - lr) * X_cov[i, t]
+    return CaviState(X_mean=X_mean, X_cov=X_cov)
+
+
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
@@ -933,6 +970,8 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
         if update_mode == "jacobi":
             state = cavi_step_jacobi(state, fi.obs, pri, params, structure,
                                      lr, corrected, mask=fi.mask_c)
+        elif update_mode == "seq":
+            state = cavi_step_seq(state, fi.obs, pri, params, structure, lr)
         else:
             state = cavi_step_block(state, fi.obs, pri, params, structure,
                                     lr, num_blocks, corrected,
@@ -996,6 +1035,11 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     outside the envelope; ``False`` disables it.
     ``carry_elbo``/``carry_patience`` seed the stopping rule from a
     previous segment's ``last_elbo``/``pat_count``.
+
+    ``update_mode``: ``"jacobi"`` (:func:`cavi_step_jacobi`), ``"block"``
+    (:func:`cavi_step_block`) or ``"seq"`` (:func:`cavi_step_seq`, the
+    reference's node-by-node order, for small n; never K3, and not with
+    ``corrected``, ``mixed_precision`` or a mask).
     """
     if diag_mode not in ("exact", "stats"):
         raise ValueError(f"unknown diag_mode: {diag_mode!r}")
@@ -1013,10 +1057,8 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
         raise ValueError(
             "mixed_precision=True is not supported with update_mode='seq' "
             "(seq exists for reference-trajectory parity)")
-    if update_mode not in ("jacobi", "block"):
-        raise NotImplementedError(
-            f"update_mode={update_mode!r}: the port runs 'jacobi' and "
-            "'block' updates only")
+    if update_mode not in ("jacobi", "block", "seq"):
+        raise ValueError(f"unknown update_mode: {update_mode!r}")
     buf = 64
     while buf < max_iter:
         buf *= 2

@@ -27,6 +27,7 @@ diagnostics (``cavi.fit_inputs``, ``cavi.residual_stats``).
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -374,8 +375,9 @@ class TemporalAMESmoothedVI(torch.nn.Module):
     seeded 0, as the JAX engine uses ``PRNGKey(0)``); ``"random"`` from
     :func:`init_smoothed_state` seeded ``seed``.  ``mask``,
     ``mixed_precision`` and ``diag_mode`` go to every fit (and ``mask`` to
-    the warm init).  Checkpointed fits keep the JAX engine's keywords but
-    are not ported yet and raise.
+    the warm init).  Segmented fits with checkpoints and a bit-for-bit
+    resume work as in the CAVI engines
+    (:meth:`tame_torch.inference.TemporalAMECaviVI.fit`).
     """
 
     structure = "smoothed"
@@ -405,6 +407,8 @@ class TemporalAMESmoothedVI(torch.nn.Module):
         self.params = model.params.to(self.Y.device, self.Y.dtype)
         self.history = {"elbo": [], "reconstruction_error": []}
         self._converged = self._diverged = False
+        self._carry_elbo: Optional[float] = None
+        self._carry_pat = 0
         if init_mode == "warm":
             st = warm_init_smoothed_state(self.Y, self.params,
                                           obs_mask=self.mask)
@@ -425,35 +429,71 @@ class TemporalAMESmoothedVI(torch.nn.Module):
             verbose: bool = True, check_every: int = 10,
             checkpoint_every=None, ckpt_dir=None, resume: bool = False):
         """Run smoothed CAVI to convergence from the current state; the
-        history grows by the iterations run."""
-        if checkpoint_every or ckpt_dir is not None or resume:
-            raise NotImplementedError(
-                "checkpointed smoothed fits are not ported yet")
-        start = len(self.history["elbo"])
-        result = fit_cavi_smoothed(
-            self.Y, self.params, self._state(), max_iter=max_iter,
-            learning_rate=self.lr, tolerance=tolerance,
-            corrected=self.corrected, update_mode=self.update_mode,
-            num_blocks=self.num_blocks, mixed_precision=self.mixed_precision,
-            diag_mode=self.diag_mode, mask=self.mask)
-        for name, value in result.state._asdict().items():
-            setattr(self, name, value)
-        n_iter = result.n_iter
-        self.history["elbo"].extend(result.elbo_history[:n_iter].tolist())
-        self.history["reconstruction_error"].extend(
-            result.mse_history[:n_iter].tolist())
-        self._converged, self._diverged = result.converged, result.diverged
+        history grows by the iterations run.  ``checkpoint_every``,
+        ``ckpt_dir`` and ``resume`` as in the CAVI engines: segments with
+        the convergence carry threaded through, an asynchronous checkpoint
+        after each, and a resume that reproduces the uninterrupted fit bit
+        for bit."""
+        if resume:
+            if ckpt_dir is None:
+                raise ValueError("resume=True requires ckpt_dir")
+            if os.path.exists(os.fspath(ckpt_dir)):
+                self.load_checkpoint(ckpt_dir)
+        done = len(self.history["elbo"])
+        budget = max_iter - done if resume else max_iter
+        if budget <= 0:
+            return self.history
+        segment = checkpoint_every or budget
+        if not (resume and done > 0):
+            self._carry_elbo, self._carry_pat = None, 0
+            self._converged = self._diverged = False
+        ckptr = None
+        if checkpoint_every and ckpt_dir is not None:
+            from tame_torch.io.async_ckpt import AsyncCheckpointer
+
+            ckptr = AsyncCheckpointer()
+        while budget > 0 and not (self._converged or self._diverged):
+            result = fit_cavi_smoothed(
+                self.Y, self.params, self._state(),
+                max_iter=min(segment, budget), learning_rate=self.lr,
+                tolerance=tolerance, corrected=self.corrected,
+                update_mode=self.update_mode, num_blocks=self.num_blocks,
+                mixed_precision=self.mixed_precision,
+                diag_mode=self.diag_mode, mask=self.mask,
+                carry_elbo=self._carry_elbo,
+                carry_patience=self._carry_pat)
+            for name, value in result.state._asdict().items():
+                setattr(self, name, value)
+            n_iter = result.n_iter
+            eh = result.elbo_history[:n_iter].tolist()
+            mh = result.mse_history[:n_iter].tolist()
+            self.history["elbo"].extend(eh)
+            self.history["reconstruction_error"].extend(mh)
+            self._converged, self._diverged = result.converged, result.diverged
+            self._carry_elbo = result.last_elbo
+            self._carry_pat = result.pat_count
+            budget -= n_iter
+            if checkpoint_every:
+                if ckptr is not None:
+                    ckptr.save(ckpt_dir, self._checkpoint_state())
+                if verbose and n_iter:
+                    print(f"Iter {len(self.history['elbo']) - 1:4d} | "
+                          f"ELBO: {eh[-1]:10.2f} | MSE: {mh[-1]:.6f}"
+                          + (" | checkpointed" if ckpt_dir else ""),
+                          flush=True)
+        if ckptr is not None:
+            ckptr.wait()
 
         n_total = len(self.history["elbo"])
         if self._diverged:
             print(f"WARNING: {self.__class__.__name__} halted at "
                   f"iteration {n_total - 1}: ELBO became non-finite "
                   "(try a smaller learning_rate).")
-        if verbose:
+        if verbose and not checkpoint_every:
             eh = self.history["elbo"]
             mh = self.history["reconstruction_error"]
-            for it in range(start, n_total):
-                if (it - start) % check_every == 0 or it == n_total - 1:
+            for it in range(done, n_total):
+                if (it - done) % check_every == 0 or it == n_total - 1:
                     print(f"Iter {it:4d} | ELBO: {eh[it]:10.2f} | "
                           f"MSE: {mh[it]:.6f}")
         return self.history
@@ -467,15 +507,56 @@ class TemporalAMESmoothedVI(torch.nn.Module):
     def predict_forward(self, n_steps: int = 1) -> torch.Tensor:
         """AR(1) forward forecast from the last smoothed means:
         (n, n_steps, d)."""
-        x = self.X_mean[:, -1]
-        preds = []
-        for _ in range(n_steps):
-            x = x @ self.params.Phi.T
-            preds.append(x)
-        return torch.stack(preds, 1)
+        from tame_torch.inference.engine import forecast_means
+
+        return forecast_means(self.X_mean[:, -1], self.params.Phi, n_steps)
+
+    def _checkpoint_state(self) -> dict:
+        """The fit state in the JAX engine's checkpoint layout."""
+        state = self._state()._asdict()
+        state.update({
+            "history": {
+                "elbo": np.asarray(self.history["elbo"]),
+                "reconstruction_error": np.asarray(
+                    self.history["reconstruction_error"]),
+            },
+            "structure": self.structure,
+            "learning_rate": self.lr,
+            "seed": self.seed,
+            "carry_elbo": self._carry_elbo,
+            "carry_pat": self._carry_pat,
+            "converged": bool(self._converged),
+            "diverged": bool(self._diverged),
+        })
+        return state
 
     def save_checkpoint(self, ckpt_dir) -> None:
-        raise NotImplementedError("checkpoints are not ported yet")
+        """Checkpoint the whole smoothed-fit state (means, marginal and
+        lag-1 cross covariances, logdets, history, convergence carry)."""
+        from tame_torch.io import save_checkpoint
+
+        save_checkpoint(ckpt_dir, self._checkpoint_state())
 
     def load_checkpoint(self, ckpt_dir) -> None:
-        raise NotImplementedError("checkpoints are not ported yet")
+        """Restore a checkpoint written by :meth:`save_checkpoint` or by
+        the JAX engine onto the device of ``Y``; a later ``fit`` continues
+        from it."""
+        from tame_torch.io import load_checkpoint
+
+        state = load_checkpoint(ckpt_dir)
+        if state.get("structure", "smoothed") != "smoothed":
+            raise ValueError(
+                f"checkpoint structure '{state.get('structure')}' is not "
+                "'smoothed'")
+        for name in SmoothedState._fields:
+            setattr(self, name, torch.as_tensor(state[name],
+                                                device=self.Y.device))
+        self.history = {
+            "elbo": np.asarray(state["history"]["elbo"]).tolist(),
+            "reconstruction_error": np.asarray(
+                state["history"]["reconstruction_error"]).tolist(),
+        }
+        self._carry_elbo = state.get("carry_elbo")
+        self._carry_pat = int(state.get("carry_pat", 0))
+        self._converged = bool(state.get("converged", False))
+        self._diverged = bool(state.get("diverged", False))

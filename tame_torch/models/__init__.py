@@ -1,4 +1,5 @@
-"""Temporal AME model family (counterpart of :mod:`tame.models`)."""
+"""AME generative models, static and temporal (counterpart of
+:mod:`tame.models`; the non-Gaussian likelihoods are not ported yet)."""
 
 from tame_torch.models.base import BaseAMEModel
 from tame_torch.models.params import (
@@ -8,6 +9,7 @@ from tame_torch.models.params import (
     correlation_matrix,
     params_from_numpy,
 )
+from tame_torch.models.static_ame import StaticAMEModel, sample_static
 from tame_torch.models.temporal_ame import (
     TemporalAMEModel,
     random_dyad_mask,
@@ -18,6 +20,7 @@ from tame_torch.models.temporal_ame import (
 
 __all__ = [
     "BaseAMEModel",
+    "StaticAMEModel",
     "TemporalAMEModel",
     "AMEParams",
     "build_params",
@@ -28,4 +31,5 @@ __all__ = [
     "sample",
     "sample_latents",
     "sample_observations",
+    "sample_static",
 ]

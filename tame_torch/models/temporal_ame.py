@@ -189,3 +189,37 @@ class TemporalAMEModel(BaseAMEModel):
         X_est = torch.as_tensor(X_est, device=self.Y.device)
         mu = dyad_ops.dyadic_mean_temporal(X_est, self.r)
         return float(dyad_ops.masked_sq_error_temporal(self.Y, mu))
+
+    def get_states_at_time(self, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(A_t (n, 2), M_t (n, 2r)) slices of the stored latents."""
+        if self.X is None:
+            raise ValueError("No data generated yet. Call generate_data() first.")
+        if t < 0 or t >= self.T:
+            raise ValueError(f"Time index {t} out of bounds [0, {self.T}).")
+        return self.X[:, t, :2], self.X[:, t, 2:]
+
+    def compute_state_prediction_error(self, X_est) -> float:
+        """Mean squared error in state space against the stored latents."""
+        if self.X is None:
+            raise ValueError("No data generated yet. Call generate_data() first.")
+        X_est = torch.as_tensor(X_est, device=self.X.device)
+        return float(torch.mean((self.X - X_est) ** 2))
+
+    def compute_additive_contribution(self, A) -> float:
+        return float(dyad_ops.additive_contribution(torch.as_tensor(A)))
+
+    def compute_multiplicative_contribution(self, M) -> float:
+        return float(dyad_ops.multiplicative_contribution(
+            torch.as_tensor(M)))
+
+    def compute_temporal_additive_contribution(self, X) -> torch.Tensor:
+        """Per-time additive variance contribution (T,), one batched
+        expression over time."""
+        X = torch.as_tensor(X)
+        return dyad_ops.additive_contribution(X[:, :, :2].transpose(0, 1))
+
+    def compute_temporal_multiplicative_contribution(self, X) -> torch.Tensor:
+        """Per-time multiplicative variance contribution (T,)."""
+        X = torch.as_tensor(X)
+        return dyad_ops.multiplicative_contribution(
+            X[:, :, 2:].transpose(0, 1))

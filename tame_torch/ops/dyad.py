@@ -79,3 +79,37 @@ def masked_sq_error_temporal(Y: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     n, _, T, _ = Y.shape
     mask = offdiag_mask(n, Y.dtype, Y.device)[:, :, None, None]
     return torch.sum(((Y - mu) ** 2) * mask) / (n * (n - 1) * T)
+
+
+def masked_sq_error_static(Y: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """Static analog of :func:`masked_sq_error_temporal`: divides by
+    n (n-1)."""
+    n = Y.shape[0]
+    mask = offdiag_mask(n, Y.dtype, Y.device)[:, :, None]
+    return torch.sum(((Y - mu) ** 2) * mask) / (n * (n - 1))
+
+
+def additive_contribution(A: torch.Tensor,
+                          exclude_diagonal: bool = True) -> torch.Tensor:
+    """Variance of the additive component a_i + b_j over pairs.  ``A`` is
+    (..., n, 2); leading axes (e.g. time) are kept."""
+    n = A.shape[-2]
+    additive = A[..., :, 0, None] + A[..., None, :, 1]
+    if exclude_diagonal:
+        mask = offdiag_mask(n, A.dtype, A.device)
+        return torch.sum(additive ** 2 * mask, (-2, -1)) / (n * (n - 1))
+    return torch.mean(additive ** 2, (-2, -1))
+
+
+def multiplicative_contribution(M: torch.Tensor,
+                                exclude_diagonal: bool = True
+                                ) -> torch.Tensor:
+    """Variance of the multiplicative component U_i . V_j over pairs.
+    ``M`` is (..., n, 2r); leading axes (e.g. time) are kept."""
+    n = M.shape[-2]
+    r = M.shape[-1] // 2
+    mult = M[..., :r] @ M[..., r:].transpose(-1, -2)
+    if exclude_diagonal:
+        mask = offdiag_mask(n, M.dtype, M.device)
+        return torch.sum(mult ** 2 * mask, (-2, -1)) / (n * (n - 1))
+    return torch.mean(mult ** 2, (-2, -1))

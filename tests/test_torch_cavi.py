@@ -291,8 +291,10 @@ class TestFitParity:
                    dict(mask=torch.ones(4, 4, 2))]:
             res = tcavi.fit_cavi(tY, tp, ts, max_iter=2, **kw)
             assert torch.isfinite(res.elbo_history[:2]).all()
-        with pytest.raises(NotImplementedError):
-            tcavi.fit_cavi(tY, tp, ts, update_mode="seq")
+        res = tcavi.fit_cavi(tY, tp, ts, update_mode="seq", max_iter=2)
+        assert torch.isfinite(res.elbo_history[:2]).all()
+        with pytest.raises(ValueError, match="update_mode"):
+            tcavi.fit_cavi(tY, tp, ts, update_mode="sweep")
         with pytest.raises(ValueError, match="fused=True requires"):
             tcavi.fit_cavi(tY, tp, ts, elbo_every=2, fused=True)
         with pytest.raises(ValueError, match="fused=True requires"):

@@ -130,8 +130,11 @@ class TestEngines:
         assert generic.structure == "block"
         with pytest.raises(ValueError):
             TemporalAMEStructuredMFVI(demo_model, factorization="ugly")
-        with pytest.raises(NotImplementedError):
-            TemporalAMENaiveMFVI(demo_model, update_mode="seq")
+        assert TemporalAMENaiveMFVI(demo_model,
+                                    update_mode="seq").update_mode == "seq"
+        with pytest.raises(ValueError, match="update_mode"):
+            TemporalAMENaiveMFVI(demo_model, update_mode="sweep").fit(
+                max_iter=1, verbose=False)
         with pytest.raises(ValueError):
             TemporalAMENaiveMFVI(TemporalAMEModel(n_nodes=4, n_time=2,
                                                   device="cpu"))
@@ -139,9 +142,12 @@ class TestEngines:
     @pytest.mark.parametrize("engine", [TemporalAMECaviVI,
                                         TemporalAMENaiveMFVI,
                                         TemporalAMEStructuredMFVI])
-    def test_fit_takes_the_jax_checkpoint_keywords(self, demo_model, engine):
-        """``fit`` names JAX's keywords with JAX's defaults; asking for a
-        checkpointed fit raises until checkpointing is ported."""
+    def test_fit_takes_the_jax_checkpoint_keywords(self, demo_model, engine,
+                                                   tmp_path):
+        """``fit`` names JAX's keywords with JAX's defaults and their
+        semantics: segments without a directory write nothing, a directory
+        without segments writes nothing, and ``resume`` needs a
+        directory."""
         import inspect
 
         from tame.inference import engine as jengine
@@ -152,11 +158,14 @@ class TestEngines:
         for name in ("checkpoint_every", "ckpt_dir", "resume"):
             assert ours[name].default == ref.parameters[name].default
         vi = engine(demo_model, learning_rate=0.7)
-        for kw in (dict(checkpoint_every=2), dict(ckpt_dir="ckpt"),
-                   dict(resume=True)):
-            with pytest.raises(NotImplementedError, match="checkpoint"):
-                vi.fit(max_iter=4, verbose=False, **kw)
+        with pytest.raises(ValueError, match="ckpt_dir"):
+            vi.fit(max_iter=4, verbose=False, resume=True)
         assert vi.get_elbo_history() == []
+        vi.fit(max_iter=4, tolerance=0.0, verbose=False, checkpoint_every=2)
+        vi.fit(max_iter=4, tolerance=0.0, verbose=False,
+               ckpt_dir=tmp_path / "ck")
+        assert len(vi.get_elbo_history()) == 8
+        assert not (tmp_path / "ck").exists()
 
     def test_naive_keeps_diagonal_and_bad_keeps_zero_cross_blocks(
             self, demo_model):

@@ -523,3 +523,86 @@ def test_packed_masked_fit_runs_through_k5(cuda_device, monkeypatch):
     assert tmc.packed_rows_contract_kernel.launches == before + 80
     torch.testing.assert_close(res.elbo_history, ref.elbo_history,
                                rtol=PACKED_FIT_RTOL, atol=0, equal_nan=True)
+
+
+def _bitwise_engines(a, b):
+    assert a.history == b.history
+    for name in a.state_dict():
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_segmented_k3_fit_bitwise_equals_one_shot(cuda_device, tmp_path):
+    """The demo's Good-SMF fit through K3, killed after 10 iterations (2
+    segments of 5, one K3 launch each) and resumed to 20 by a fresh
+    engine: bit for bit the one-shot fit, which is itself reproducible."""
+    from tame_torch import TemporalAMEStructuredMFVI
+
+    model = TemporalAMEModel(n_nodes=15, n_time=10, latent_dim=2, seed=42)
+    model.generate_data(generator=torch.Generator().manual_seed(42),
+                        device=cuda_device)
+
+    def make():
+        return TemporalAMEStructuredMFVI(model, learning_rate=0.7)
+
+    ref, again = make(), make()
+    for vi in (ref, again):
+        vi.fit(max_iter=20, tolerance=0.0, verbose=False)
+    _bitwise_engines(ref, again)
+    before = tff.fused_fit_kernel.launches
+    make().fit(max_iter=10, tolerance=0.0, verbose=False,
+               checkpoint_every=5, ckpt_dir=tmp_path / "ck")
+    vi = make()
+    vi.fit(max_iter=20, tolerance=0.0, verbose=False, checkpoint_every=5,
+           ckpt_dir=tmp_path / "ck", resume=True)
+    assert tff.fused_fit_kernel.launches == before + 4
+    _bitwise_engines(vi, ref)
+
+
+def test_segmented_smoothed_fit_bitwise_equals_one_shot(cuda_device,
+                                                        tmp_path):
+    """A smoothed fit through K4 (4 blocks), killed after 8 iterations in
+    segments of 4 and resumed to 12: bit for bit the one-shot fit."""
+    from tame_torch import TemporalAMESmoothedVI
+
+    model = TemporalAMEModel(n_nodes=24, n_time=6, latent_dim=2, seed=5)
+    model.generate_data(device=cuda_device)
+
+    def make():
+        return TemporalAMESmoothedVI(model, learning_rate=0.8,
+                                     update_mode="block", num_blocks=4)
+
+    ref, again = make(), make()
+    for vi in (ref, again):
+        vi.fit(max_iter=12, tolerance=0.0, verbose=False)
+    _bitwise_engines(ref, again)
+    before = tfs.fused_smoother_kernel.launches
+    make().fit(max_iter=8, tolerance=0.0, verbose=False, checkpoint_every=4,
+               ckpt_dir=tmp_path / "sm")
+    vi = make()
+    vi.fit(max_iter=12, tolerance=0.0, verbose=False, checkpoint_every=4,
+           ckpt_dir=tmp_path / "sm", resume=True)
+    assert tfs.fused_smoother_kernel.launches == before + 4 * 12
+    _bitwise_engines(vi, ref)
+
+
+@pytest.mark.parametrize("structure", ["diag", "full", "block"])
+def test_seq_sweep_on_card_matches_cpu(cuda_device, structure):
+    """The seq sweep on the card (one K1 launch per (node, time) solve)
+    against the same fit on the CPU: ELBO within 1e-4 relative at every
+    iteration and the same stop."""
+    model = TemporalAMEModel(n_nodes=8, n_time=4, latent_dim=2, seed=3,
+                             device="cpu")
+    Y = model.generate_data()
+    init = cavi.init_state(torch.Generator().manual_seed(1), 8, 4, 6,
+                           structure, 0.1, 0.5)
+    kw = dict(structure=structure, update_mode="seq", max_iter=40,
+              learning_rate=0.7, tolerance=1e-4)
+    before = tchol.spd_solve_inv_kernel.launches
+    card = cavi.fit_cavi(Y.to(cuda_device), model.params.to(cuda_device),
+                         cavi.CaviState(init.X_mean.to(cuda_device),
+                                        init.X_cov.to(cuda_device)), **kw)
+    assert tchol.spd_solve_inv_kernel.launches == before + 8 * 4 * card.n_iter
+    cpu = cavi.fit_cavi(Y, model.params, init, **kw)
+    assert (card.n_iter, card.converged) == (cpu.n_iter, cpu.converged)
+    torch.testing.assert_close(card.elbo_history, cpu.elbo_history,
+                               rtol=RTOL, atol=0, equal_nan=True)

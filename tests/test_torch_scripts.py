@@ -24,6 +24,7 @@ from tame_torch.scripts import (
     layout_probe3,
     masked_scale_probe,
     scale_bench,
+    seq_probe,
     smoother_bench,
     spd_probe,
 )
@@ -217,6 +218,23 @@ def test_contract_probe_compares_outputs_bit_for_bit():
         "K5 x": {"stripe 0": True}, "K6 y": {"row": True, "col": True}}
     # a case the other tree did not save (an m its K6 refused) is left out
     assert contract_probe.compare_bits(a, b) == {"K5 x": {"stripe 0": 0.5}}
+
+
+def test_seq_probe_times_the_sweep_and_a_save(tmp_path, capsys):
+    out = tmp_path / "ck"
+    res = seq_probe.main(CPU + ["--n", "5", "--T", "3", "--r", "1",
+                                "--iters", "2", "--ckpt-n", "12",
+                                "--ckpt-T", "3", "--repeats", "1",
+                                "--out-dir", str(out)])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(res))
+    assert set(res["seq"]) == {"diag", "full", "block"}
+    assert all(v["ms_per_iter"] > 0 for v in res["seq"].values())
+    # no card: the profiler sees no device time, and says so
+    assert res["seq"]["full"]["device_ms_per_iter"] is None
+    ck = res["checkpoint"]
+    assert ck["save_ms"] > 0 and ck["size_mb"] > 0
+    assert not out.exists()  # the probe removes what it wrote
 
 
 def test_scripts_need_the_card_unless_asked_for_the_cpu():

@@ -349,7 +349,9 @@ class TestEngine:
             h = TemporalAMESmoothedVI(model, **kw).fit(max_iter=2,
                                                        verbose=False)
             assert np.isfinite(h["elbo"]).all()
-        with pytest.raises(NotImplementedError):
-            sm.fit(max_iter=2, checkpoint_every=1)
+        sm.fit(max_iter=2, verbose=False, checkpoint_every=1)
+        assert len(sm.history["elbo"]) == 8
+        with pytest.raises(ValueError, match="ckpt_dir"):
+            sm.fit(max_iter=2, resume=True)
         with pytest.raises(ValueError):
             TemporalAMESmoothedVI(model, init_mode="bogus")
