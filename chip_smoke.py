@@ -66,9 +66,34 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     ``tamestore`` format;
 15. the forecasts (``predict_forward_with_cov``, ``predict_dyads``) at
     H=5 from the n=2000 fit's state, against the same functions on a CPU
-    copy of it.
+    copy of it;
+16. the non-Gaussian mean-field engines at the JAX probes' setting,
+    n=1000, T=20, r=2, data drawn on the card from ``ModelConfig(seed=0)``
+    with ``family="bernoulli"`` / ``"poisson"``: ``TemporalAMEBernoulliVI``
+    (lr 0.8) and ``TemporalAMEPoissonVI`` (lr 0.7) from a random init, 40
+    iterations, one K1 launch (B = n T = 20,000, d = 6) and one K2 launch
+    per iteration; the Bernoulli fit's predictor must then correlate
+    >= 0.95 with the generating one; the Poisson fit, continued by the
+    engine's default fit to its stop, must not diverge and reach 0.97;
+17. both engines at n=2000, T=50, r=4 from the warm init, 20 iterations
+    (K1 at d = 10, B = 100,000): finite, not diverged, the objective
+    raised (a positive Poisson objective is reported: the weights' clamp
+    binds on these data, ROADMAP C.7);
+18. card against CPU at n=40, T=5, r=2 with 30 % of the dyads hidden: the
+    Bernoulli, Poisson, smoothed Bernoulli and smoothed Poisson fits on
+    the card and on a CPU copy from one init, 60 iterations: the same
+    stop and rejected iterations, the objective within 1e-4 relative at
+    every iteration, and the same stop again at tolerance 1e-5;
+    the smoothed fits launch K4 once per iteration;
+19. ``em_scale_probe --binary``: binary EM at n=1000, T=20, r=2 from phi
+    0.3, one K4 launch per inner iteration, phi within 0.1 of 0.8;
+20. the n=1000 Poisson fit checkpointed, killed and resumed bit for bit,
+    as in phase 14;
+21. the karate club's masked Poisson fit (20 % hidden) on the card and on
+    a CPU copy from the CPU's warm init: the rates within 1e-4 of max,
+    the held-out AUC printed beside the degree baseline's.
 
-Each of phases 3-15 is a path of its own (phases 7, 11, 13 and 14 several): the
+Each of phases 3-21 is a path of its own (phases 7, 11, 13, 14, 16-18 several): the
 launch counters are zeroed just before it and read just after, and each
 path must have launched its kernels.  K6 lies on no path: its
 ``launches`` are its comparison launches in phase 2.  The second-to-last
@@ -234,9 +259,12 @@ def phase_smoother_kernel(report: dict) -> None:
     # (iii) the smallest d with T=2, (iv) T=1, where the backward pass is
     # empty and cross_cov is (n, 0, d, d), (v) one block phase of the r = 6
     # smoothed fit, (vi, vii) the edges of one row per lane (d = 32, 34),
-    # (viii) a ragged n at the largest d.
+    # (viii) a ragged n at the largest d, (ix) one update of the smoothed
+    # non-Gaussian families and the binary EM at n=1000, T=20, r=2, (x)
+    # the card-against-CPU phase's n=40, T=5.
     for n, T, d in [(125, 50, 10), (2000, 50, 10), (3, 2, 4), (3, 1, 4),
-                    (125, 50, 14), (4, 3, 32), (4, 3, 34), (5, 4, 48)]:
+                    (125, 50, 14), (4, 3, 32), (4, 3, 34), (5, 4, 48),
+                    (1000, 20, 6), (40, 5, 6)]:
         D, O, b = smoother_system(n, T, d, gen)
         k = fs.fused_smoother_kernel(D, O, b)
         torch.cuda.synchronize()
@@ -259,6 +287,9 @@ def phase_smoother_kernel(report: dict) -> None:
             entry["ms_d14"] = ms
         if (n, T, d) == (2000, 50, 10):
             entry["ms_n2000"] = ms
+        if (n, T, d) == (1000, 20, 6):
+            entry["n1000_T20_d6"] = dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=None, **b_)
     # one node's D made indefinite: NaN for that node, the twin's outputs
     # for the others
     D, O, b = smoother_system(6, 5, 14, gen)
@@ -321,7 +352,7 @@ def phase_kernels(report: dict) -> None:
     # batch, and the padded capacity with two rows per lane (d = 34, 48).
     for d, B, timed in [(10, 6250, True), (10, 12500, False),
                         (10, 100000, False), (6, 1001, False),
-                        (14, 6250, True), (14, 1001, False),
+                        (6, 20000, True), (14, 6250, True), (14, 1001, False),
                         (34, 1003, False), (48, 1001, False)]:
         P, eta = spd_batch(B, d, gen)
         mu, cov = ch.spd_solve_inv_kernel(P, eta)
@@ -359,6 +390,8 @@ def phase_kernels(report: dict) -> None:
             entry.update(t, library="torch.linalg.solve(P, eta), the "
                          "mu-only function; library_inv_ms: "
                          "torch.linalg.inv_ex(P), the inverse alone")
+        elif d == 6:  # the non-Gaussian engines' n=1000, T=20 solve
+            entry["d6_B20000"] = t
         else:
             entry[f"ms_d{d}"] = t["ms"]
     # one system made indefinite at the first pivot, one at the third:
@@ -392,9 +425,9 @@ def phase_kernels(report: dict) -> None:
     # the padded capacity.
     entry = report["logdet_spd"]
     entry["max_abs_err"] = 0.0
-    for d, B, timed in [(10, 100000, True), (14, 100000, True),
-                        (14, 1001, False), (34, 1003, False),
-                        (48, 1001, False)]:
+    for d, B, timed in [(10, 100000, True), (6, 20000, True),
+                        (14, 100000, True), (14, 1001, False),
+                        (34, 1003, False), (48, 1001, False)]:
         P, _ = spd_batch(B, d, gen)
         ld, ld_t = ch.logdet_spd_kernel(P), ch.logdet_spd_twin(P)
         torch.cuda.synchronize()
@@ -415,6 +448,8 @@ def phase_kernels(report: dict) -> None:
               f"{t['bound_ms']} ms ({t['bound_by']})")
         if d == 10:
             entry.update(t)
+        elif d == 6:  # the non-Gaussian engines' n=1000, T=20 entropy
+            entry["d6_B20000"] = t
         else:
             entry[f"ms_d{d}"] = t["ms"]
 
@@ -1097,9 +1132,18 @@ def phase_seq(name: str):
     return len(h["elbo"]), h["reconstruction_error"][-1], card._diverged
 
 
+def _same_values(a: list, b: list) -> bool:
+    """Equal lengths and equal floats, NaN equal to NaN (the Poisson
+    engine's deviance is NaN on its rejected iterations)."""
+    return len(a) == len(b) and all(
+        x == y or (math.isnan(x) and math.isnan(y)) for x, y in zip(a, b))
+
+
 def _bitwise(label: str, a, b) -> None:
     """Require two engines' histories and states bit for bit equal."""
-    require(a.history == b.history, f"{label}: histories differ")
+    require(a.history.keys() == b.history.keys()
+            and all(_same_values(a.history[k], b.history[k])
+                    for k in a.history), f"{label}: histories differ")
     for name in a.state_dict():
         require(torch.equal(getattr(a, name), getattr(b, name)),
                 f"{label}: {name} differs")
@@ -1220,6 +1264,333 @@ def phase_forecast(vi) -> None:
             f"the card's forecast departs from the CPU's: {errs}")
     require(bool(torch.isfinite(std).all() and (std > 0).all()),
             "forecast std not finite and positive")
+
+
+# ---------------------------------------------------------------------------
+# The non-Gaussian families: K1 and K2 in the mean-field engines, K4 in the
+# smoothed families and the binary EM
+# ---------------------------------------------------------------------------
+
+FAMILY_ELBO_RTOL = 1e-4   # card vs CPU objective, every iteration
+KARATE_RATE_RTOL = 1e-4   # card vs CPU fitted rates, against max |rate|
+FAMILY: dict = {}          # the paths' numbers, printed at the end
+
+
+def family_model(family: str, n: int, T: int, r: int, seed: int = 0):
+    """A ``TemporalAMEModel`` whose data are ``family`` ties drawn on the
+    card from ``ModelConfig(seed=seed)``; ``X`` holds the latents."""
+    from tame_torch import TemporalAMEModel
+    from tame_torch.models import sample
+
+    model = TemporalAMEModel(n_nodes=n, n_time=T, latent_dim=r, seed=seed)
+    model.Y, model.X = sample(model.params.to("cuda"), torch.Generator(
+        device="cuda").manual_seed(seed), n, T, family=family)
+    return model
+
+
+def family_engine(family: str, model, **kw):
+    from tame_torch.inference import (TemporalAMEBernoulliVI,
+                                      TemporalAMEPoissonVI)
+
+    if family == "bernoulli":
+        return TemporalAMEBernoulliVI(model, learning_rate=0.8, **kw)
+    return TemporalAMEPoissonVI(model, learning_rate=0.7, **kw)
+
+
+def timed_fit(vi, **kw):
+    """``vi.fit(**kw)`` between CUDA events: (history, ms/iteration)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    h = vi.fit(verbose=False, **kw)
+    end.record()
+    end.synchronize()
+    return h, start.elapsed_time(end) / len(h["elbo"])
+
+
+def rejected_count(h: dict) -> int:
+    return sum(math.isnan(v) for v in h.get("deviance", []))
+
+
+def phase_family_full_size(family: str) -> int:
+    """The JAX probes' setting: n=1000, T=20, r=2, random init, 40
+    iterations at tolerance 0 (lr 0.8 Bernoulli, 0.7 Poisson).  The
+    Bernoulli fit's predictor must then correlate >= 0.95 with the
+    generating one.  The Poisson fit is then continued by the engine's
+    default fit (<= 200 iterations to tolerance 1e-5) and must not diverge
+    and reach 0.97 at its stop: from a random init the guard rejects the
+    first iterations on this realization and the step scale grows back
+    x1.25 per step, so 40 iterations leave it short
+    of 0.97, as the JAX algorithm is on the same data; both correlations
+    are printed.  Returns the iterations run."""
+    from tame_torch.scripts._common import predictor_corr
+
+    model = family_model(family, 1000, 20, 2)
+    vi = family_engine(family, model, init_mode="random")
+    h, ms = timed_fit(vi, max_iter=40, tolerance=0.0)
+    corr = predictor_corr(model.X, vi.X_mean, 2)
+    key2 = "accuracy" if family == "bernoulli" else "deviance"
+    out = FAMILY[f"{family}_n1000"] = dict(ms_per_iter=ms, corr40=corr,
+                                           rejected=rejected_count(h))
+    print(f"{family} n=1000 T=20 r=2 (random init, 40 iterations): {ms} "
+          f"ms/iteration (CUDA events over fit()), correlation with the "
+          f"generating predictor {corr}, {key2} {h[key2][-1]}, bound/ELBO "
+          f"{h['elbo'][0]} -> {h['elbo'][-1]}, rejected iterations "
+          f"{rejected_count(h)}, diverged {vi._diverged}")
+    require(len(h["elbo"]) == 40 and all(math.isfinite(v)
+                                         for v in h["elbo"]),
+            f"the n=1000 {family} fit did not run 40 finite iterations")
+    require(not vi._diverged, f"the n=1000 {family} fit diverged")
+    n_iter = 40
+    if family == "poisson":
+        h = vi.fit(max_iter=200, tolerance=1e-5, verbose=False)
+        more = len(h["elbo"]) - 40   # the history holds both fits
+        n_iter += more
+        corr = predictor_corr(model.X, vi.X_mean, 2)
+        out.update(continued=more, corr=corr, converged=vi._converged)
+        print(f"poisson n=1000 continued: {more} more iterations "
+              f"to tolerance 1e-5 (converged {vi._converged}, diverged "
+              f"{vi._diverged}, {rejected_count(h)} rejected), correlation "
+              f"{corr}, deviance {h['deviance'][-1]}")
+        require(not vi._diverged, "the continued n=1000 poisson fit "
+                "diverged")
+    require(corr >= (0.95 if family == "bernoulli" else 0.97),
+            f"the n=1000 {family} fit's predictor correlation {corr} is "
+            "below its bar")
+    return n_iter
+
+
+def phase_family_north_star(family: str) -> int:
+    """n=2000, T=50, r=4 (d=10, B = 100,000 per K1 launch) from the warm
+    init, 20 iterations."""
+    from tame_torch.ops import dyad as dyad_ops
+
+    model = family_model(family, 2000, 50, 4)
+    m_true = dyad_ops.dyadic_fwd_temporal(model.X, 4)
+    vi = family_engine(family, model, init_mode="warm")
+    h, ms = timed_fit(vi, max_iter=20, tolerance=0.0)
+    FAMILY[f"{family}_n2000"] = dict(ms_per_iter=ms,
+                                     rejected=rejected_count(h),
+                                     objective=[h["elbo"][0], h["elbo"][-1]])
+    print(f"{family} n=2000 T=50 r=4 (warm init, 20 iterations): {ms} "
+          f"ms/iteration (CUDA events over fit()), bound/ELBO "
+          f"{h['elbo'][0]} -> {h['elbo'][-1]}, rejected iterations "
+          f"{rejected_count(h)}, generating predictor "
+          f"{m_true.min().item()} .. {m_true.max().item()}, largest "
+          f"observation {model.Y.max().item()}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
+    if h["elbo"][-1] > 0:
+        # no ELBO of a pmf's data is positive: the e^20 clamp of the CVI
+        # weights binds where the generating log-rates exceed 20 (ROADMAP
+        # C.7), and the guard then accepts what the clamped objective
+        # rates higher, as the JAX engine does
+        print(f"{family} n=2000: the objective is positive, so not an "
+              "ELBO: the weights' e^20 clamp binds on these data "
+              "(ROADMAP C.7)")
+    require(all(math.isfinite(v) for v in h["elbo"]) and not vi._diverged,
+            f"the n=2000 {family} fit is not finite or diverged")
+    require(h["elbo"][-1] > h["elbo"][0],
+            f"the n=2000 {family} fit did not raise its objective")
+    return 20
+
+
+CARD_VS_CPU = ("Bernoulli", "Poisson", "smoothed Bernoulli",
+               "smoothed Poisson")
+
+
+def family_fit(kind: str, Y, params, init, mask, **kw):
+    """One of the four non-Gaussian fits through its function."""
+    from tame_torch.inference import (fit_cavi_bernoulli, fit_cavi_poisson,
+                                      fit_smoothed_family)
+
+    if kind == "Bernoulli":
+        return fit_cavi_bernoulli(Y, params, init, mask=mask,
+                                  learning_rate=0.8, **kw)
+    if kind == "Poisson":
+        return fit_cavi_poisson(Y, params, init, mask=mask,
+                                learning_rate=0.7, **kw)
+    return fit_smoothed_family(Y, params, init, mask=mask,
+                               family=kind.split()[1].lower(),
+                               learning_rate=0.7, **kw)
+
+
+def rejected_iterations(kind: str, out) -> list:
+    """The guarded loop's rejected iterations: NaN deviance (Poisson), a
+    repeated objective (smoothed families; the Bernoulli engine has no
+    guard)."""
+    eh = out.elbo_history[:out.n_iter].tolist()
+    if kind == "Poisson":
+        return [i for i, v in enumerate(out.deviance_history[:out.n_iter]
+                                        .tolist()) if math.isnan(v)]
+    if kind == "Bernoulli":
+        return []
+    return [i for i in range(1, len(eh)) if eh[i] == eh[i - 1]]
+
+
+def phase_card_vs_cpu(kind: str) -> int:
+    """n=40, T=5, r=2 with 30 % of the dyads hidden: the fit on the card
+    and on a CPU copy (the twins) from one init computed on the CPU, 60
+    iterations each at tolerance 0; the same stop, the same rejected
+    iterations and the objective within FAMILY_ELBO_RTOL at every
+    iteration.  Then both at tolerance 1e-5 (<= 150 iterations), their
+    stops printed: a relative stop falls where float32 sums in another
+    order decide it.  Returns the iterations run on the card."""
+    from tame_torch.inference import cavi, warm_init_smoothed_family
+    from tame_torch.models import random_dyad_mask
+
+    family = kind.split()[-1].lower()
+    model = family_model(family, 40, 5, 2)
+    params, Y = model.params, model.Y.cpu()
+    mask = random_dyad_mask(torch.Generator().manual_seed(1), 40, 5, 0.3)
+    if kind == "Bernoulli":
+        init = cavi.init_state(torch.Generator().manual_seed(10), 40, 5, 6,
+                               "full", 0.1, 0.5)
+    elif kind == "Poisson":
+        init = cavi.warm_init_state(torch.log(Y + 0.5), params,
+                                    structure="full", obs_mask=mask)
+    else:
+        init = warm_init_smoothed_family(Y, params, family, obs_mask=mask)
+    on_card = type(init)(*(x.cuda() for x in init))
+    card = family_fit(kind, model.Y, params.to("cuda"), on_card,
+                      mask.cuda(), max_iter=60, tolerance=0.0)
+    cpu = family_fit(kind, Y, params, init, mask, max_iter=60,
+                     tolerance=0.0)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        card.elbo_history[:60].tolist(), cpu.elbo_history[:60].tolist()))
+    rej = rejected_iterations(kind, card)
+    stops = [family_fit(kind, Y_, p_, i_, m_, max_iter=150, tolerance=1e-5)
+             for Y_, p_, i_, m_ in ((model.Y, params.to("cuda"), on_card,
+                                     mask.cuda()), (Y, params, init, mask))]
+    FAMILY[f"card_vs_cpu {kind}"] = dict(
+        max_rel_elbo=rel, rejected=rej,
+        stops_at_1e5=[o.n_iter for o in stops])
+    print(f"card vs CPU, {kind} n=40 T=5 r=2, 30 % hidden: 60 iterations "
+          f"each (diverged {card.diverged} / {cpu.diverged}), rejected "
+          f"iterations {rej} / {rejected_iterations(kind, cpu)}, max "
+          f"relative objective difference {rel}; at tolerance 1e-5 the "
+          f"card stops at {stops[0].n_iter} (converged "
+          f"{stops[0].converged}), the CPU at {stops[1].n_iter} (converged "
+          f"{stops[1].converged})")
+    require((card.n_iter, card.diverged) == (cpu.n_iter, cpu.diverged)
+            == (60, False), f"card vs CPU {kind}: different stops")
+    require(stops[0].n_iter == stops[1].n_iter
+            and stops[0].converged == stops[1].converged,
+            f"card vs CPU {kind}: different stops at tolerance 1e-5")
+    require(rej == rejected_iterations(kind, cpu),
+            f"card vs CPU {kind}: different rejected iterations")
+    require(rel <= FAMILY_ELBO_RTOL, f"card vs CPU {kind}: the objectives "
+            f"differ by {rel}")
+    return 60 + stops[0].n_iter
+
+
+@contextlib.contextmanager
+def counting_inner_iterations(tally: list):
+    """Count the iterations of every smoothed-family E-step ``fit_em``
+    runs (its backoff retries included) into ``tally``."""
+    from tame_torch.inference import em
+
+    inner = em.fit_smoothed_family
+
+    def counted(*args, **kw):
+        out = inner(*args, **kw)
+        tally.append(out.n_iter)
+        return out
+
+    em.fit_smoothed_family = counted
+    try:
+        yield
+    finally:
+        em.fit_smoothed_family = inner
+
+
+def phase_binary_em() -> int:
+    """``em_scale_probe --binary``: n=1000, T=20, r=2 Bernoulli ties from
+    phi 0.8 (seed 1), start phi 0.3, 8 EM iterations of <= 60 smoothed
+    E-step iterations at lr 0.7; returns the inner iterations run."""
+    from tame_torch.scripts import em_scale_probe
+
+    tally: list = []
+    with counting_inner_iterations(tally):
+        res = em_scale_probe.main(["--binary"])
+    FAMILY["binary_em"] = dict(res, inner_iterations=sum(tally))
+    print(f"binary EM: {res['em_iters']} EM iterations, {sum(tally)} inner "
+          f"iterations ({tally}), learned phi {res['phi']} (truth 0.8), "
+          f"{res['wall_s']} s (host clock)")
+    require(abs(res["phi"] - 0.8) < 0.1,
+            f"the binary EM learned phi {res['phi']}, not within 0.1 of 0.8")
+    return sum(tally)
+
+
+def phase_ckpt_poisson():
+    """The n=1000 Poisson fit (warm init) killed after 8 iterations in
+    segments of 4 and resumed to 12: the guarded loop's carry (proposal,
+    step scale) rides the checkpoint."""
+    model = family_model("poisson", 1000, 20, 2)
+    killed_and_resumed(lambda: family_engine("poisson", model),
+                       "checkpointed n=1000 Poisson (K1/K2)", 12, 4, 8)
+
+
+def phase_karate() -> dict:
+    """The masked Poisson fit of the karate-club network (n=34, T=1, r=2,
+    20 % of the dyads hidden by ``random_dyad_mask`` seeded 1, warm init,
+    <= 300 iterations to 1e-6) on the card and on a CPU copy from the
+    CPU's warm init: the fitted rates within KARATE_RATE_RTOL; the
+    held-out AUC beside the degree baseline's."""
+    import types
+
+    from tame_torch.config import ModelConfig
+    from tame_torch.inference import TemporalAMEPoissonVI
+    from tame_torch.io import load_karate_club
+    from tame_torch.models import build_params, random_dyad_mask
+
+    data = load_karate_club()
+    n = data.n_nodes
+    hide = random_dyad_mask(torch.Generator().manual_seed(1), n, 1, 0.2)
+    off = 1.0 - torch.eye(n)[:, :, None]
+    fitmask, held = off * hide, off * (1.0 - hide)
+    params = build_params(ModelConfig(n_nodes=n, n_time=1, latent_dim=2,
+                                      seed=0))
+    engines = {}
+    for dev in ("cuda", "cpu"):
+        m = types.SimpleNamespace(Y=data.Y.to(dev), params=params, n=n, T=1,
+                                  d=6, r=2)
+        engines[dev] = TemporalAMEPoissonVI(m, mask=fitmask.to(dev),
+                                            init_mode="warm")
+    card, cpu = engines["cuda"], engines["cpu"]
+    init_diff = rel_err(card.X_mean.cpu(), cpu.X_mean)[1]
+    card.X_mean, card.X_cov = cpu.X_mean.cuda(), cpu.X_cov.cuda()
+    hc = card.fit(max_iter=300, tolerance=1e-6, verbose=False)
+    hp = cpu.fit(max_iter=300, tolerance=1e-6, verbose=False)
+    rate = card.predict_rate().cpu()
+    err = rel_err(rate, cpu.predict_rate())[1]
+    y0 = data.Y[..., 0].cpu()
+    sel = held > 0
+    lbl = y0[sel] > 0
+    fm = fitmask * y0
+    base = (fm.sum((1, 2))[:, None] + fm.sum((0, 2))[None, :])[:, :, None]
+    auc = {k: auc_score(v.expand_as(y0)[sel], lbl)
+           for k, v in (("model", rate), ("degree", base))}
+    out = dict(iterations=(len(hc["elbo"]), len(hp["elbo"])),
+               rate_rel=err, auc=auc["model"], auc_degree=auc["degree"],
+               warm_init_rel=init_diff)
+    FAMILY["karate"] = out
+    print(f"karate masked Poisson (n=34, 20 % hidden): {out['iterations']} "
+          f"iterations card / CPU (converged {card._converged} / "
+          f"{cpu._converged}), fitted rates card vs CPU {err} of max; "
+          f"held-out AUC {auc['model']}, degree baseline {auc['degree']}; "
+          f"the card's own warm init differed from the CPU's by "
+          f"{init_diff} of max")
+    require(err <= KARATE_RATE_RTOL,
+            f"the card's karate rates depart from the CPU's by {err}")
+    return out
+
+
+def auc_score(scores: torch.Tensor, labels: torch.Tensor) -> float:
+    """The probability that a positive outscores a negative (ties half)."""
+    pos, neg = scores[labels][:, None], scores[~labels][None, :]
+    return float(((pos > neg).double() + 0.5 * (pos == neg).double()).mean())
+
 
 
 def main() -> int:
@@ -1399,6 +1770,43 @@ def main() -> int:
     require(cksm["fused_smoother"] == 16 * 36, f"the checkpointed smoothed "
             f"fit did not launch K4 16 times per iteration: {cksm}")
     del model
+
+    # the non-Gaussian families: K1 and K2 once per mean-field iteration,
+    # K4 once per smoothed-family and inner EM iteration
+    def mean_field_counts(label, c, n_iter):
+        require(c["spd_solve_inv"] == n_iter and c["logdet_spd"] == n_iter
+                and c["fused_fit"] == 0 and c["fused_smoother"] == 0,
+                f"{label} did not launch K1 and K2 once per iteration "
+                f"({n_iter}) and K3, K4 never: {c}")
+
+    for family in ("bernoulli", "poisson"):
+        n_iter, c = drive(f"n=1000 {family}", phase_family_full_size,
+                          family)
+        mean_field_counts(f"the n=1000 {family} fit", c, n_iter)
+    for family in ("bernoulli", "poisson"):
+        n_iter, c = drive(f"n=2000 {family}", phase_family_north_star,
+                          family)
+        mean_field_counts(f"the n=2000 {family} fit", c, n_iter)
+    for kind in CARD_VS_CPU:
+        n_iter, c = drive(f"card vs CPU {kind}", phase_card_vs_cpu, kind)
+        if kind.startswith("smoothed"):
+            require(c["fused_smoother"] == n_iter and c["spd_solve_inv"] == 0
+                    and c["logdet_spd"] == 0, f"the {kind} fits on the card "
+                    f"did not launch K4 once per iteration ({n_iter}): {c}")
+        else:
+            mean_field_counts(f"the {kind} fits on the card", c, n_iter)
+    n_inner, c = drive("binary EM n=1000", phase_binary_em)
+    require(c["fused_smoother"] == n_inner and c["spd_solve_inv"] == 0,
+            f"the binary EM did not launch K4 once per inner iteration "
+            f"({n_inner}): {c}")
+    _, c = drive("checkpointed n=1000 Poisson", phase_ckpt_poisson)
+    # two one-shot fits of 12, the killed 8, the resumed 4
+    mean_field_counts("the checkpointed Poisson fits", c, 36)
+    karate, c = drive("karate masked Poisson", phase_karate)
+    mean_field_counts("the karate fit on the card", c,
+                      karate["iterations"][0])
+    print(f"non-Gaussian paths: {json.dumps(FAMILY)}")
+
     import shutil
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)

@@ -1,7 +1,11 @@
 """Variational inference engines (counterpart of :mod:`tame.inference`;
-the samplers and the non-Gaussian families are not ported yet)."""
+the samplers are not ported yet)."""
 
 from tame_torch.inference import cavi
+from tame_torch.inference.binary_cavi import (
+    TemporalAMEBernoulliVI,
+    fit_cavi_bernoulli,
+)
 from tame_torch.inference.cavi import (
     CaviState,
     FitResult,
@@ -20,6 +24,15 @@ from tame_torch.inference.engine import (
     TemporalAMEStructuredMFVI,
 )
 from tame_torch.inference.evidence import exact_elbo
+from tame_torch.inference.family_smoothed import (
+    SmoothedFamilyResult,
+    fit_smoothed_family,
+    warm_init_smoothed_family,
+)
+from tame_torch.inference.poisson_cavi import (
+    TemporalAMEPoissonVI,
+    fit_cavi_poisson,
+)
 from tame_torch.inference.smoothed import (
     TemporalAMESmoothedVI,
     fit_cavi_smoothed,
@@ -40,11 +53,18 @@ __all__ = [
     "TemporalAMECaviVI",
     "TemporalAMENaiveMFVI",
     "TemporalAMEStructuredMFVI",
+    "TemporalAMEBernoulliVI",
+    "TemporalAMEPoissonVI",
     "TemporalAMESmoothedVI",
+    "fit_cavi_bernoulli",
+    "fit_cavi_poisson",
     "fit_cavi_smoothed",
     "warm_init_smoothed_state",
     "fit_em",
     "em_update_params",
     "EMResult",
+    "SmoothedFamilyResult",
+    "fit_smoothed_family",
+    "warm_init_smoothed_family",
     "exact_elbo",
 ]

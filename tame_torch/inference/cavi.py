@@ -879,6 +879,15 @@ class _StopRule:
         self.diverged = elbo is not None and not math.isfinite(elbo)
 
 
+def history_buffer(max_iter: int) -> int:
+    """The JAX loops' history length: the next power of two >=
+    max(max_iter, 64)."""
+    buf = 64
+    while buf < max_iter:
+        buf *= 2
+    return buf
+
+
 class FitInputs(NamedTuple):
     """The loop-invariant inputs of a fit, shared by the CAVI and smoothed
     loops (:func:`fit_inputs`)."""
@@ -1059,9 +1068,7 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
             "(seq exists for reference-trajectory parity)")
     if update_mode not in ("jacobi", "block", "seq"):
         raise ValueError(f"unknown update_mode: {update_mode!r}")
-    buf = 64
-    while buf < max_iter:
-        buf *= 2
+    buf = history_buffer(max_iter)
     n, _, T, _ = Y.shape
     d = init.X_mean.shape[-1]
     if update_mode == "block" and num_blocks is None:

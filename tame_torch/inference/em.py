@@ -18,8 +18,11 @@ Gaussian dyads, complete or masked networks (counterpart of
 
 Every M-step quantity is a reduction over the E-step's posteriors, O(n T d^2)
 besides one O(n^2 T) residual pass (and, under a mask, one mask
-contraction).  The non-Gaussian families are not ported yet and raise
-``NotImplementedError``.
+contraction).  Non-Gaussian families (``family="bernoulli"``/``"poisson"``
+or any object with a ``vi_surrogate``) take their E-step from
+:func:`tame_torch.inference.family_smoothed.fit_smoothed_family`, the same
+joint-trajectory posteriors; the R M-step, Gaussian-specific, is dropped
+for them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ import numpy as np
 import torch
 
 from tame_torch.inference import cavi
+from tame_torch.inference.family_smoothed import (
+    fit_smoothed_family,
+    warm_init_smoothed_family,
+)
 from tame_torch.inference.smoothed import (
     SmoothedState,
     fit_cavi_smoothed,
@@ -263,7 +270,16 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
 
     ``mask`` ((n, n, T), symmetric; its diagonal is zeroed) fits the
     observed dyads only, in the warm init, the E-steps and the M-step;
-    ``mixed_precision``/``diag_mode`` go to the E-steps.
+    ``mixed_precision``/``diag_mode`` go to the Gaussian E-steps.
+
+    ``family``: ``"gaussian"`` (the smoothed CAVI E-step),
+    ``"bernoulli"``/``"poisson"`` or a custom object with a
+    ``vi_surrogate`` (the smoothed non-Gaussian E-step,
+    :func:`~tame_torch.inference.family_smoothed.fit_smoothed_family`,
+    warm-started by
+    :func:`~tame_torch.inference.family_smoothed.warm_init_smoothed_family`).
+    For those ``"R"`` is dropped from ``learn``: their dyadic noise is the
+    likelihood itself.
 
     Returns :class:`EMResult`; ``history`` tracks ``elbo`` (final inner
     ELBO per EM iteration) and the learned scalars (``phi_mult``, the last
@@ -277,15 +293,17 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
         raise ValueError(
             "custom family must implement vi_surrogate to serve as an EM "
             "E-step")
-    if family != "gaussian":
-        raise NotImplementedError(
-            f"family {family!r}: only the Gaussian E-step is ported yet")
+    gaussian = isinstance(family, str) and family == "gaussian"
+    if not gaussian:
+        learn = tuple(k for k in learn if k != "R")
     n, _, T, _ = Y.shape
     if mask is not None:
         mask = cavi.gated_mask(mask, Y)
     params = params0
     if init is not None:
         state = init
+    elif not gaussian and init_mode == "warm":
+        state = warm_init_smoothed_family(Y, params0, family, obs_mask=mask)
     elif init_mode == "warm":
         state = warm_init_smoothed_state(Y, params0, obs_mask=mask)
     else:
@@ -313,13 +331,20 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
         # iteration's hyperparameters only.
         lr = learning_rate
         for attempt in range(4):
-            out = fit_cavi_smoothed(Y, params, state,
-                                    max_iter=inner_max_iter,
-                                    learning_rate=lr,
-                                    tolerance=inner_tolerance,
-                                    corrected=True,
-                                    mixed_precision=mixed_precision,
-                                    diag_mode=diag_mode, mask=mask)
+            if gaussian:
+                out = fit_cavi_smoothed(Y, params, state,
+                                        max_iter=inner_max_iter,
+                                        learning_rate=lr,
+                                        tolerance=inner_tolerance,
+                                        corrected=True,
+                                        mixed_precision=mixed_precision,
+                                        diag_mode=diag_mode, mask=mask)
+            else:
+                out = fit_smoothed_family(Y, params, state, family=family,
+                                          max_iter=inner_max_iter,
+                                          learning_rate=lr,
+                                          tolerance=inner_tolerance,
+                                          mask=mask)
             e = float(out.elbo_history[out.n_iter - 1])
             # Relative regression threshold: near convergence the ELBO
             # moves at reduction-noise scale, which must not back off.

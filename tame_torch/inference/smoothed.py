@@ -310,9 +310,7 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
                          "exclusive solver choices; drop one")
     if smoother == "parallel":
         raise NotImplementedError("smoother='parallel' is not ported yet")
-    buf = 64
-    while buf < max_iter:
-        buf *= 2
+    buf = cavi.history_buffer(max_iter)
     n, _, T, _ = Y.shape
     d = init.X_mean.shape[-1]
     if fused is True and not fused_smoother_supported(n, T, d):

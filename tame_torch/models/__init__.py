@@ -1,7 +1,14 @@
-"""AME generative models, static and temporal (counterpart of
-:mod:`tame.models`; the non-Gaussian likelihoods are not ported yet)."""
+"""AME generative models, static and temporal, and the dyadic likelihood
+families (counterpart of :mod:`tame.models`)."""
 
 from tame_torch.models.base import BaseAMEModel
+from tame_torch.models.likelihoods import (
+    BernoulliDyadic,
+    GaussianDyadic,
+    NegativeBinomialDyadic,
+    PoissonDyadic,
+    get_family,
+)
 from tame_torch.models.params import (
     AMEParams,
     block_diagonal,
@@ -23,6 +30,11 @@ __all__ = [
     "StaticAMEModel",
     "TemporalAMEModel",
     "AMEParams",
+    "BernoulliDyadic",
+    "GaussianDyadic",
+    "NegativeBinomialDyadic",
+    "PoissonDyadic",
+    "get_family",
     "build_params",
     "block_diagonal",
     "correlation_matrix",

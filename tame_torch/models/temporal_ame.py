@@ -19,6 +19,7 @@ import torch
 
 from tame_torch.config import ModelConfig
 from tame_torch.models.base import BaseAMEModel
+from tame_torch.models.likelihoods import get_family
 from tame_torch.models.params import AMEParams, build_params
 from tame_torch.ops import dyad as dyad_ops
 
@@ -42,25 +43,28 @@ def sample_latents(params: AMEParams, generator: torch.Generator, n: int,
 
 
 def sample_observations(params: AMEParams, generator: torch.Generator,
-                        X: torch.Tensor) -> torch.Tensor:
-    """Gaussian dyadic observations given latents: one correlated draw per
-    ordered (i, j, t) slot, mirrored to enforce reciprocity.
+                        X: torch.Tensor, family=None) -> torch.Tensor:
+    """Dyadic observations given latents.
+
+    Default (Gaussian): one correlated draw per ordered (i, j, t) slot,
+    mirrored to enforce reciprocity.  ``family``
+    (:mod:`tame_torch.models.likelihoods`, e.g. ``"poisson"`` /
+    ``"bernoulli"`` or a family instance) swaps the observation model:
+    counts or binary ties through the same bilinear predictor.
 
     Returns Y (n, n, T, 2) with zero diagonal and Y[i,j,t,1] == Y[j,i,t,0].
     """
-    n, T, _ = X.shape
-    LR = torch.linalg.cholesky(params.R.to(X.device))
     mu = dyad_ops.dyadic_mean_temporal(X, params.r)
-    noise = torch.randn(n, n, T, 2, generator=generator,
-                        device=X.device) @ LR.T
-    return dyad_ops.symmetrize_dyads(mu + noise)
+    return get_family("gaussian" if family is None else family).sample(
+        generator, params, mu)
 
 
 def sample(params: AMEParams, generator: torch.Generator, n: int,
-           T: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample (Y, X) from the temporal AME model."""
+           T: int, family=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample (Y, X) from the temporal AME model (``family`` selects the
+    dyadic observation model; default Gaussian)."""
     X = sample_latents(params, generator, n, T)
-    Y = sample_observations(params, generator, X)
+    Y = sample_observations(params, generator, X, family=family)
     return Y, X
 
 

@@ -92,8 +92,10 @@ def test_partial_learn_and_validation(problem):
         tem.em_update_params(tp, tY, ts, phi_structure="bogus")
     with pytest.raises(ValueError, match="r_structure"):
         tem.em_update_params(tp, tY, ts, r_structure="bogus")
-    with pytest.raises(NotImplementedError):
-        fit_em(tY, tp, family="bernoulli")
+    # a non-Gaussian family runs its smoothed E-step and holds R
+    res = fit_em((tY > 0).to(tY.dtype), tp, family="bernoulli", n_em=1,
+                 inner_max_iter=3)
+    assert len(res.history["phi"]) == 1 and torch.equal(res.params.R, tp.R)
     with pytest.raises(ValueError, match="unknown family"):
         fit_em(tY, tp, family="bogus")
 

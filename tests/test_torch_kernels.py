@@ -606,3 +606,134 @@ def test_seq_sweep_on_card_matches_cpu(cuda_device, structure):
     assert (card.n_iter, card.converged) == (cpu.n_iter, cpu.converged)
     torch.testing.assert_close(card.elbo_history, cpu.elbo_history,
                                rtol=RTOL, atol=0, equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# The non-Gaussian families: K1/K2 in the mean-field engines, K4 in the
+# smoothed families
+# ---------------------------------------------------------------------------
+
+FAMILY_KINDS = ["Bernoulli", "Poisson", "smoothed Bernoulli",
+                "smoothed Poisson"]
+
+
+def _family_problem(kind):
+    """n=40, T=5, r=2 data of the kind's family drawn on the CPU, 30 % of
+    the dyads hidden, and an init computed on the CPU."""
+    from tame_torch.inference import warm_init_smoothed_family
+    from tame_torch.models import sample
+
+    family = kind.split()[-1].lower()
+    p = build_params(ModelConfig(n_nodes=40, n_time=5, latent_dim=2,
+                                 seed=0))
+    Y, _ = sample(p, torch.Generator().manual_seed(0), 40, 5, family=family)
+    mask = random_dyad_mask(torch.Generator().manual_seed(1), 40, 5, 0.3)
+    if kind == "Bernoulli":
+        init = cavi.init_state(torch.Generator().manual_seed(10), 40, 5, 6,
+                               "full", 0.1, 0.5)
+    elif kind == "Poisson":
+        init = cavi.warm_init_state(torch.log(Y + 0.5), p, structure="full",
+                                    obs_mask=mask)
+    else:
+        init = warm_init_smoothed_family(Y, p, family, obs_mask=mask)
+    return p, Y, mask, init
+
+
+def _family_fit(kind, p, Y, mask, init, **kw):
+    from tame_torch.inference import (fit_cavi_bernoulli, fit_cavi_poisson,
+                                      fit_smoothed_family)
+
+    if kind == "Bernoulli":
+        return fit_cavi_bernoulli(Y, p, init, mask=mask, **kw)
+    if kind == "Poisson":
+        return fit_cavi_poisson(Y, p, init, mask=mask, **kw)
+    return fit_smoothed_family(Y, p, init, mask=mask,
+                               family=kind.split()[1].lower(), **kw)
+
+
+def _rejected(kind, out):
+    eh = out.elbo_history[:out.n_iter].tolist()
+    if kind == "Poisson":
+        return torch.isnan(out.deviance_history[:out.n_iter]).nonzero(
+        ).ravel().tolist()
+    return [i for i in range(1, len(eh)) if eh[i] == eh[i - 1]]
+
+
+@pytest.mark.parametrize("kind", FAMILY_KINDS)
+def test_family_fit_on_card_matches_cpu(cuda_device, kind):
+    """Each non-Gaussian fit on the card against the same fit on the CPU
+    (the twins) from one init, 60 iterations at tolerance 0: the same
+    stop and rejected iterations, the objective within RTOL at every
+    iteration; K1 and K2 once per mean-field iteration, K4 once per
+    smoothed-family iteration."""
+    p, Y, mask, init = _family_problem(kind)
+    kw = dict(max_iter=60, tolerance=0.0)
+    counters = (tchol.spd_solve_inv_kernel, tchol.logdet_spd_kernel,
+                tfs.fused_smoother_kernel)
+    before = [c.launches for c in counters]
+    card = _family_fit(kind, p.to(cuda_device), Y.to(cuda_device),
+                       mask.to(cuda_device),
+                       type(init)(*(x.to(cuda_device) for x in init)), **kw)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    smoothed = kind.startswith("smoothed")
+    assert launches == ([0, 0, 60] if smoothed else [60, 60, 0])
+    cpu = _family_fit(kind, p, Y, mask, init, **kw)
+    assert (card.n_iter, card.diverged) == (cpu.n_iter, cpu.diverged)
+    assert _rejected(kind, card) == _rejected(kind, cpu)
+    torch.testing.assert_close(card.elbo_history, cpu.elbo_history,
+                               rtol=RTOL, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("family", ["bernoulli", "poisson"])
+def test_family_engine_resume_on_card_is_bitwise(cuda_device, tmp_path,
+                                                 family):
+    """A mean-field engine on the card killed after 12 iterations in
+    segments of 4 and resumed to 20: bit for bit the one-shot fit, which
+    is itself reproducible (the Poisson checkpoint carries the guarded
+    loop's proposal and step scale)."""
+    from tame_torch.inference import (TemporalAMEBernoulliVI,
+                                      TemporalAMEPoissonVI)
+    from tame_torch.models import sample
+
+    model = TemporalAMEModel(n_nodes=40, n_time=5, latent_dim=2, seed=0,
+                             device="cpu")
+    model.Y, model.X = sample(model.params, torch.Generator().manual_seed(0),
+                              40, 5, family=family)
+    model.Y = model.Y.to(cuda_device)
+    engine = (TemporalAMEBernoulliVI if family == "bernoulli"
+              else TemporalAMEPoissonVI)
+
+    def same(a, b):
+        assert a.history.keys() == b.history.keys()
+        for k in a.history:
+            torch.testing.assert_close(torch.tensor(a.history[k]),
+                                       torch.tensor(b.history[k]), rtol=0,
+                                       atol=0, equal_nan=True)
+        for name in a.state_dict():
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+    ref, again = engine(model), engine(model)
+    for vi in (ref, again):
+        vi.fit(max_iter=20, tolerance=0.0, verbose=False)
+    same(ref, again)
+    engine(model).fit(max_iter=12, tolerance=0.0, verbose=False,
+                      checkpoint_every=4, ckpt_dir=tmp_path / "ck")
+    vi = engine(model)
+    vi.fit(max_iter=20, tolerance=0.0, verbose=False, checkpoint_every=4,
+           ckpt_dir=tmp_path / "ck", resume=True)
+    same(vi, ref)
+
+
+def test_family_smoothed_launches_k4_once_per_iteration(cuda_device):
+    """``fit_smoothed_family`` sends every node's trajectory through one
+    K4 launch per iteration, rejected iterations included."""
+    from tame_torch.inference import fit_smoothed_family
+
+    p, Y, mask, init = _family_problem("smoothed Poisson")
+    before = tfs.fused_smoother_kernel.launches
+    out = fit_smoothed_family(
+        Y.to(cuda_device), p.to(cuda_device),
+        type(init)(*(x.to(cuda_device) for x in init)), family="poisson",
+        mask=mask.to(cuda_device), max_iter=150, tolerance=1e-5)
+    assert tfs.fused_smoother_kernel.launches - before == out.n_iter
+    assert not out.diverged

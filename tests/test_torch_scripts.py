@@ -16,6 +16,7 @@ import torch
 
 from tame_torch.scripts import (
     bench,
+    binary_scale_probe,
     block_count_probe,
     contract_probe,
     em_scale_probe,
@@ -23,6 +24,7 @@ from tame_torch.scripts import (
     jacobi_scale_probe,
     layout_probe3,
     masked_scale_probe,
+    poisson_scale_probe,
     scale_bench,
     seq_probe,
     smoother_bench,
@@ -130,11 +132,30 @@ def test_masked_scale_probe_with_packed_mask(monkeypatch):
 
 
 def test_em_scale_probe_gaussian_leg_and_binary_leg_waits(capsys):
+    """Both legs run: the Gaussian one and the binary one (``--binary``,
+    the smoothed Bernoulli E-step) at tiny size."""
     res = em_scale_probe.main(FIT + ["--n-em", "2", "--inner-max-iter", "4"])
-    assert res["em_iters"] == 2
-    assert "queue A item 12" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        em_scale_probe.main(FIT + ["--binary"])
+    assert res["em_iters"] == 2 and res["leg"] == "Gaussian"
+    res = em_scale_probe.main(FIT + ["--n-em", "2", "--inner-max-iter", "4",
+                                     "--binary"])
+    assert res["em_iters"] == 2 and res["leg"] == "binary"
+    assert res["sigma2"] == pytest.approx(0.1)  # R is not learned
+    out = capsys.readouterr().out
+    assert "fit_em binary n=12 T=3 r=1" in out and "queue A" not in out
+
+
+@pytest.mark.parametrize("probe,keys", [
+    (binary_scale_probe, {"accuracy"}),
+    (poisson_scale_probe, {"deviance", "diverged", "step_scale",
+                           "rejected"})])
+def test_family_scale_probes(probe, keys):
+    res = probe.main(FIT + ["--short", "2", "--long", "3",
+                            "--profile-iters", "1"])
+    assert {"ms_per_iter", "predictor_corr", "n_iter", "profile"} | keys \
+        <= set(res)
+    assert res["n_iter"] == 3 and -1.0 <= res["predictor_corr"] <= 1.0
+    # the CPU has no device time to split
+    assert res["profile"]["device_ms_per_iter"] is None
 
 
 def test_block_count_and_jacobi_probes():
