@@ -91,15 +91,43 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     as in phase 14;
 21. the karate club's masked Poisson fit (20 % hidden) on the card and on
     a CPU copy from the CPU's warm init: the rates within 1e-4 of max,
-    the held-out AUC printed beside the degree baseline's.
+    the held-out AUC printed beside the degree baseline's;
+22. the time-parallel smoother (``tame_torch.ops.ptridiag``) against K4
+    on the same systems: one north-star block phase (n=125, T=50, d=10),
+    (64, 1024, 10) and (16, 2048, 10) at phi 0.97 with weak information;
+    means and covariances within 5e-4, logdets within 1e-4 relative, both
+    timed;
+23. the n=2000, T=50, r=4 warm smoothed fit in 16 blocks, 10 iterations,
+    with ``smoother="sequential"`` (K4, 16 launches per iteration) and
+    ``"parallel"`` (no K4 launch): the ELBO within 1e-4 relative at every
+    iteration, ms/iteration of both;
+24. the joint log-density and its gradient (``log_joint`` over 4 states
+    in one batched call) at n=40, T=5, r=2 on the card against the CPU:
+    Gaussian, 30 % hidden with NaN coding, Poisson, Bernoulli, within
+    1e-5 relative and finite;
+25. NUTS at ``scripts/mcmc_bench.py``'s width (n=128, T=16, r=2, 64
+    chains as one batch, depth 6), CAVI-preconditioned through K1/K2,
+    warmup and draws cut to 600 + 100: log-density split-R-hat <= 1.1,
+    mean accept in [0.6, 0.95], median dyad-mean effect size against the
+    SMF fit < 0.3; ESS/s and host readbacks per transition printed; then
+    HMC at the same width (16 leapfrog steps, 100 + 100): finite, mean
+    accept >= 0.5;
+26. tempered SMC at ``scripts/smc_bench.py``'s width (n=64, T=8, r=2, 256
+    particles, buffer 600, 6 moves x 20 leapfrog, 30 stages per call),
+    one replicate, preconditioned through K3: beta reaches 1 inside the
+    buffer and the log-evidence lies above the exact ELBO less 3 nats;
+27. random-walk moves at that shape with step scales 0.5 and 0.15, 10
+    stages each: the mean acceptance printed (ROADMAP C.5).
 
-Each of phases 3-21 is a path of its own (phases 7, 11, 13, 14, 16-18 several): the
-launch counters are zeroed just before it and read just after, and each
-path must have launched its kernels.  K6 lies on no path: its
-``launches`` are its comparison launches in phase 2.  The second-to-last
-line is a JSON object describing each kernel (``launches`` summed over
-the paths), the last is the device record.  Needs one CUDA card; without
-one it exits non-zero before printing any result.
+Phases 22-27 each print their wall time beside the card's name and power
+limit.  Each of phases 3-27 is a path of its own (phases 7, 11, 13, 14,
+16-18, 23 and 25 several): the launch counters are zeroed just before it
+and read just after, and each path must have launched its kernels.  K6
+lies on no path: its ``launches`` are its comparison launches in phase
+2.  The second-to-last line is a JSON object describing each kernel
+(``launches`` summed over the paths), the last is the device record.
+Needs one CUDA card; without one it exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -1592,6 +1620,313 @@ def auc_score(scores: torch.Tensor, labels: torch.Tensor) -> float:
     return float(((pos > neg).double() + 0.5 * (pos == neg).double()).mean())
 
 
+# ---------------------------------------------------------------------------
+# The time-parallel smoother and the samplers
+# ---------------------------------------------------------------------------
+
+PTRI_ATOL = 5e-4        # parallel vs sequential smoother (tame's bound)
+PTRI_LOGDET_RTOL = 1e-4
+PARALLEL_ELBO_RTOL = 1e-4   # parallel vs K4 smoothed fit, every iteration
+LOGPROB_RTOL = 1e-5     # card vs CPU log density and gradient
+CARD = ""               # nvidia-smi's name and power limit, set in main
+SAMPLERS: dict = {}     # the sampler phases' numbers, printed at the end
+
+
+def timed_phase(label: str, fn, *args):
+    """Run one phase and print its wall time beside the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(f"phase {label}: {time.perf_counter() - t0:.2f} s wall on {CARD}",
+          flush=True)
+    return out
+
+
+def weak_information_system(n: int, T: int, d: int, phi: float,
+                            gen: torch.Generator):
+    """Observation information A A' + 0.1 I with A ~ 0.05 N(0, 1) (weak)
+    and the prior of tame's high-phi test, as (Pobs, eta, (Phi, Q,
+    Sigma0), D, O) with D, O the sequential system's blocks."""
+    eye = torch.eye(d, device="cuda")
+    A = torch.randn(n, T, d, d, device="cuda", generator=gen) * 0.05
+    Pobs = A @ A.transpose(-1, -2) + 0.1 * eye
+    eta = torch.randn(n, T, d, device="cuda", generator=gen)
+    Phi = phi * eye
+    Q = (1 - phi ** 2) * 0.1 * (eye + 0.2 * torch.ones(d, d, device="cuda"))
+    Sigma0 = eye * 0.7 + 0.1
+    Q_inv, S0_inv = torch.linalg.inv(Q), torch.linalg.inv(Sigma0)
+    t = torch.arange(T, device="cuda")
+    D = (Pobs + (t == 0)[:, None, None] * S0_inv
+         + (t > 0)[:, None, None] * Q_inv
+         + (t < T - 1)[:, None, None] * (Phi.T @ Q_inv @ Phi))
+    return Pobs, eta, (Phi, Q, Sigma0), D, -Phi.T @ Q_inv
+
+
+def phase_parallel_smoother() -> dict:
+    """The associative-scan smoother against K4 on the same systems: one
+    north-star block phase (n=125, T=50, d=10; D_obs = A A'/d + I and the
+    model's prior), (64, 1024, 10) and (16, 2048, 10) at phi 0.97 with weak
+    information; means and covariances within 5e-4, logdets within 1e-4
+    relative; both timed (CUDA-event medians of 5)."""
+    from tame_torch.config import ModelConfig
+    from tame_torch.inference import cavi
+    from tame_torch.models import build_params
+    from tame_torch.ops.fused_smoother import fused_smoother
+    from tame_torch.ops.ptridiag import parallel_block_tridiag_smoother
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    p = build_params(ModelConfig(n_nodes=2000, n_time=50,
+                                 latent_dim=4)).to("cuda")
+    pri = cavi.precompute_priors(p)
+    A = torch.randn(125, 50, 10, 10, device="cuda", generator=gen)
+    Pobs = A @ A.transpose(-1, -2) / 10 + torch.eye(10, device="cuda")
+    eta = torch.randn(125, 50, 10, device="cuda", generator=gen)
+    cases = {"n=125 T=50 d=10 (north-star block phase)": (
+        Pobs, eta, (p.Phi, p.Q, p.Sigma0),
+        Pobs + cavi._prior_precision(pri, 50)[None], -pri.Qinv_Phi.T)}
+    for n, T in ((64, 1024), (16, 2048)):
+        cases[f"n={n} T={T} d=10 (phi 0.97, weak information)"] = \
+            weak_information_system(n, T, 10, 0.97, gen)
+    out = {}
+    for label, (Pobs, eta, prior, D, O) in cases.items():
+        seq = fused_smoother(D, O, eta)
+        par = parallel_block_tridiag_smoother(Pobs, eta, *prior)
+        errs = {name: (getattr(par, name) - getattr(seq, name)).abs().max()
+                .item() for name in ("mean", "cov", "cross_cov")}
+        ld = ((par.logdet - seq.logdet).abs() / seq.logdet.abs()).max().item()
+        k4_ms = cuda_ms(lambda: fused_smoother(D, O, eta), reps=5)
+        par_ms = cuda_ms(lambda: parallel_block_tridiag_smoother(
+            Pobs, eta, *prior), reps=5)
+        out[label] = dict(k4_ms=k4_ms, parallel_ms=par_ms, max_abs=errs,
+                          logdet_rel=ld)
+        print(f"parallel smoother vs K4, {label}: K4 {k4_ms} ms, parallel "
+              f"{par_ms} ms; max |diff| {errs}, logdet rel {ld}", flush=True)
+        require(all(e <= PTRI_ATOL for e in errs.values())
+                and ld <= PTRI_LOGDET_RTOL,
+                f"the parallel smoother departs from K4 at {label}")
+    SAMPLERS["parallel vs K4"] = out
+    return out
+
+
+def phase_parallel_fit(model, smoother: str, iters: int = 10):
+    """The north-star smoothed fit from the warm init, 16 blocks, ``iters``
+    iterations at tolerance 0 with ``smoother``; returns (ELBO history,
+    ms/iteration by CUDA events)."""
+    from tame_torch.inference.smoothed import (
+        fit_cavi_smoothed,
+        warm_init_smoothed_state,
+    )
+
+    Y = model.Y
+    params = model.params.to("cuda")
+    init = warm_init_smoothed_state(Y, params)
+    fit_cavi_smoothed(Y, params, init, max_iter=1, smoother=smoother,
+                      num_blocks=16)          # first products pick kernels
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fit_cavi_smoothed(Y, params, init, max_iter=iters, tolerance=0.0,
+                            smoother=smoother, num_blocks=16)
+    end.record()
+    end.synchronize()
+    require(res.n_iter == iters, f"the {smoother} fit stopped early")
+    return res.elbo_history[:iters], start.elapsed_time(end) / iters
+
+
+def logprob_case(kind: str, dev: str):
+    """(log density fn, latents (4, n, T, d)) at n=40, T=5, r=2 on ``dev``
+    for one of: gaussian, masked (30 % hidden, NaN-coded), poisson,
+    bernoulli; data drawn on the CPU, then moved."""
+    from tame_torch import TemporalAMEModel
+    from tame_torch.inference.logprob import make_logdensity_fn
+    from tame_torch.models import random_dyad_mask, sample_observations
+
+    model = TemporalAMEModel(n_nodes=40, n_time=5, latent_dim=2, seed=3,
+                             device="cpu")
+    Y, X = model.generate_data(return_latents=True)
+    mask, family = None, None
+    if kind == "masked":
+        mask = random_dyad_mask(torch.Generator().manual_seed(4), 40, 5, 0.3)
+        Y = torch.where(mask[..., None] > 0, Y, torch.tensor(math.nan))
+    elif kind in ("poisson", "bernoulli"):
+        family = kind
+        Y = sample_observations(model.params, torch.Generator().manual_seed(5),
+                                X, family=kind)
+    states = X[None] + 0.3 * torch.randn(
+        (4,) + X.shape, generator=torch.Generator().manual_seed(6))
+    fn = make_logdensity_fn(model.params.to(dev), Y.to(dev),
+                            obs_mask=None if mask is None else mask.to(dev),
+                            family=family)
+    return fn, states.to(dev)
+
+
+def phase_logprob() -> dict:
+    """log_joint and its gradient for 4 states in one batched call on the
+    card against the CPU: values within 1e-5 relative, gradients within
+    1e-5 of their largest entry and finite."""
+    from tame_torch.inference.hmc import value_and_grad
+
+    out = {}
+    for kind in ("gaussian", "masked", "poisson", "bernoulli"):
+        (cf, cx), (gf, gx) = logprob_case(kind, "cpu"), logprob_case(
+            kind, "cuda")
+        cv, cg = value_and_grad(cf, cx)
+        gv, gg = value_and_grad(gf, gx)
+        v_rel = ((gv.cpu() - cv).abs() / cv.abs()).max().item()
+        g_rel = rel_err(gg.cpu(), cg)[1]
+        out[kind] = dict(value_rel=v_rel, grad_rel=g_rel)
+        print(f"log density n=40 T=5 r=2 {kind}, card vs CPU: value rel "
+              f"{v_rel}, gradient rel {g_rel}", flush=True)
+        require(torch.isfinite(gg).all(), f"non-finite {kind} gradient")
+        require(v_rel <= LOGPROB_RTOL and g_rel <= LOGPROB_RTOL,
+                f"the {kind} log density departs from the CPU's")
+    return out
+
+
+def phase_nuts() -> dict:
+    """``mcmc_bench`` at its width (n=128, T=16, r=2, 64 chains, depth 6,
+    CAVI-preconditioned), warmup and draws cut to 600 + 100 (the chains
+    climb from the CAVI start to the typical set in ~500 transitions, so
+    a shorter warmup samples a trend): the
+    log-density split-R-hat <= 1.1, the mean accept statistic in [0.6,
+    0.95], the median dyad-mean effect size against the SMF fit < 0.3."""
+    from tame_torch.scripts import mcmc_bench
+
+    res = mcmc_bench.main(["--warmup", "600", "--samples", "100"])
+    SAMPLERS["nuts"] = {k: res[k] for k in (
+        "wall_s", "ess_per_s_median", "ess_per_s_min", "ess_median",
+        "syncs_per_transition", "steps_per_transition", "grad_ms",
+        "grad_kernels", "grad_device_ms", "ms_per_gradient_in_run",
+        "accept_mean", "logdensity_rhat", "split_rhat_max",
+        "smf_effect_size_median", "step_size_median")}
+    print(f"NUTS n=128 T=16 r=2, 64 chains: ESS/s median "
+          f"{res['ess_per_s_median']} (min {res['ess_per_s_min']}), "
+          f"{res['syncs_per_transition']} host readbacks per transition, "
+          f"{res['wall_s']} s on {CARD}", flush=True)
+    require(res["logdensity_rhat"] <= 1.1, "NUTS log-density R-hat > 1.1")
+    require(0.6 <= res["accept_mean"] <= 0.95,
+            f"NUTS mean accept {res['accept_mean']} outside [0.6, 0.95]")
+    require(res["smf_effect_size_median"] < 0.3,
+            "NUTS and the SMF fit disagree in dyad-mean space")
+    return res
+
+
+def phase_hmc() -> dict:
+    """HMC at the same width: 64 chains, 16 leapfrog steps, 100 warmup and
+    100 draws, CAVI-preconditioned: finite, mean accept >= 0.5."""
+    from tame_torch import TemporalAMEModel
+    from tame_torch.inference import TemporalAMEHMC
+
+    model = TemporalAMEModel(n_nodes=128, n_time=16, latent_dim=2, seed=0)
+    model.generate_data(
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    hmc = TemporalAMEHMC(model, num_chains=64, num_leapfrog=16, seed=0)
+    t0 = time.perf_counter()
+    out = hmc.sample(num_warmup=100, num_samples=100)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = float(out.accept_prob.mean())
+    SAMPLERS["hmc"] = dict(wall_s=wall, accept_mean=acc,
+                           step_size_median=float(out.step_size.median()))
+    print(f"HMC n=128 T=16 r=2, 64 chains x 16 leapfrog, 100 + 100: "
+          f"{wall} s, mean accept {acc}", flush=True)
+    require(torch.isfinite(out.positions).all()
+            and torch.isfinite(out.logdensities).all(), "non-finite HMC")
+    require(acc >= 0.5, f"HMC mean accept {acc} < 0.5")
+    return SAMPLERS["hmc"]
+
+
+def phase_smc() -> dict:
+    """``smc_bench`` at its width (n=64, T=8, r=2, 256 particles, buffer
+    600, 6 moves x 20 leapfrog, 30 stages per call), one replicate (cut
+    from 4): beta reaches 1 inside the buffer and the log-evidence lies
+    above the exact ELBO less 3 nats (``tests/test_mcmc.py``)."""
+    from tame_torch.scripts import smc_bench
+
+    res = smc_bench.main(["--replicates", "1"])
+    SAMPLERS["smc"] = {k: res[k] for k in (
+        "stages", "wall_s_per_replicate", "kl_gap_nats", "log_evidence_mean",
+        "exact_elbo", "accept_mean", "resamples_mean")}
+    print(f"SMC n=64 T=8 r=2, 256 particles: {res['stages']} stages, "
+          f"{res['wall_s_per_replicate']} s, evidence - exact ELBO "
+          f"{res['kl_gap_nats']} nats on {CARD}", flush=True)
+    require(res["reached_beta_1"], "SMC did not reach beta = 1")
+    require(res["kl_gap_nats"] > -3.0, "the SMC evidence lies below the "
+            "exact ELBO")
+    return res
+
+
+def phase_rwm_acceptance() -> dict:
+    """Random-walk moves at the ``smc_bench`` shape with step_scale 0.5
+    (the default the port keeps) and 0.15, 10 stages each: the mean
+    acceptance of each (ROADMAP C.5)."""
+    from tame_torch.inference.hmc import precondition_from_cavi
+    from tame_torch.inference.smc import run_smc
+    from tame_torch.scripts import _common
+
+    _, params, Y = _common.north_star(torch.device("cuda"), 64, 8, 2)
+    _, variances = precondition_from_cavi(Y, params)
+    out = {}
+    for scale in (0.5, 0.15):
+        res = run_smc(params, Y, torch.Generator(device="cuda").manual_seed(7),
+                      num_particles=256, num_stages=600, num_moves=6,
+                      step_scale=scale, move_kernel="rwm",
+                      proposal_scale=variances.sqrt(), max_new_stages=10)
+        acc = res.accept_history[:res.n_stages]
+        out[scale] = dict(accept_mean=float(acc.mean()),
+                          beta=float(res.beta_history[res.n_stages - 1]))
+        print(f"RWM moves, step_scale {scale}, {res.n_stages} stages: mean "
+              f"acceptance {out[scale]['accept_mean']}, beta reached "
+              f"{out[scale]['beta']}", flush=True)
+    SAMPLERS["rwm"] = out
+    return out
+
+
+
+def sampler_paths(drive) -> None:
+    """The time-parallel smoother and the samplers, each a path driven by
+    ``drive`` (the launch counters zeroed before it) and timed."""
+    _, c = drive("parallel smoother vs K4", timed_phase,
+                 "parallel smoother vs K4", phase_parallel_smoother)
+    require(c["fused_smoother"] > 0, "the comparison did not run K4")
+    model = north_star_model()
+    fits = {}
+    for smoother in ("sequential", "parallel"):
+        fits[smoother], c = drive(
+            f"n=2000 smoothed fit, smoother={smoother}", timed_phase,
+            f"n=2000 smoothed fit, smoother={smoother}", phase_parallel_fit,
+            model, smoother)
+        # one warm-up iteration and 10 timed ones, 16 block phases each
+        want = 16 * 11 if smoother == "sequential" else 0
+        require(c["fused_smoother"] == want, f"the {smoother} smoothed fit "
+                f"launched K4 {c['fused_smoother']} times, not {want}")
+    (seq_h, seq_ms), (par_h, par_ms) = fits["sequential"], fits["parallel"]
+    rel = ((par_h - seq_h).abs() / seq_h.abs()).max().item()
+    SAMPLERS["n=2000 smoothed fit"] = dict(k4_ms_per_iter=seq_ms,
+                                           parallel_ms_per_iter=par_ms,
+                                           elbo_rel=rel)
+    print(f"n=2000 T=50 r=4 smoothed fit, warm, 16 blocks, 10 iterations: "
+          f"K4 {seq_ms} ms/iteration, parallel smoother {par_ms} "
+          f"ms/iteration; max relative ELBO difference {rel}", flush=True)
+    require(rel <= PARALLEL_ELBO_RTOL, "the parallel smoothed fit departs "
+            "from the K4 fit")
+    del model
+    drive("log density card vs CPU", timed_phase, "log density card vs CPU",
+          phase_logprob)
+    for label, phase in (("NUTS n=128 T=16 r=2", phase_nuts),
+                         ("HMC n=128 T=16 r=2", phase_hmc)):
+        _, c = drive(label, timed_phase, label, phase)
+        require(c["spd_solve_inv"] > 0 and c["logdet_spd"] > 0
+                and c["fused_fit"] == 0, f"the {label} preconditioner did "
+                f"not run K1 and K2: {c}")
+    _, c = drive("SMC n=64 T=8 r=2", timed_phase, "SMC n=64 T=8 r=2",
+                 phase_smc)
+    require(c["fused_fit"] > 0, f"the SMC preconditioner did not run K3: {c}")
+    drive("RWM acceptance", timed_phase, "RWM acceptance",
+          phase_rwm_acceptance)
+    print(f"sampler and parallel-smoother paths: {json.dumps(SAMPLERS)}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1610,8 +1945,10 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    global CARD
+    CARD = smi.stdout.strip()
     print("card (nvidia-smi name, power.limit):")
-    print(smi.stdout.strip())
+    print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
 
@@ -1806,6 +2143,8 @@ def main() -> int:
     mean_field_counts("the karate fit on the card", c,
                       karate["iterations"][0])
     print(f"non-Gaussian paths: {json.dumps(FAMILY)}")
+
+    sampler_paths(drive)
 
     import shutil
 

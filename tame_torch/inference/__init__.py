@@ -1,5 +1,5 @@
-"""Variational inference engines (counterpart of :mod:`tame.inference`;
-the samplers are not ported yet)."""
+"""Variational inference engines and posterior samplers (counterpart of
+:mod:`tame.inference`)."""
 
 from tame_torch.inference import cavi
 from tame_torch.inference.binary_cavi import (
@@ -24,6 +24,15 @@ from tame_torch.inference.engine import (
     TemporalAMEStructuredMFVI,
 )
 from tame_torch.inference.evidence import exact_elbo
+from tame_torch.inference.hmc import TemporalAMEHMC, run_hmc
+from tame_torch.inference.logprob import (
+    log_joint,
+    log_likelihood,
+    log_prior,
+    make_logdensity_fn,
+)
+from tame_torch.inference.nuts import TemporalAMENUTS, nuts_kernel, run_nuts
+from tame_torch.inference.smc import TemporalAMESMC, run_smc
 from tame_torch.inference.family_smoothed import (
     SmoothedFamilyResult,
     fit_smoothed_family,
@@ -67,4 +76,15 @@ __all__ = [
     "fit_smoothed_family",
     "warm_init_smoothed_family",
     "exact_elbo",
+    "TemporalAMEHMC",
+    "TemporalAMENUTS",
+    "TemporalAMESMC",
+    "run_hmc",
+    "run_nuts",
+    "run_smc",
+    "nuts_kernel",
+    "log_joint",
+    "log_likelihood",
+    "log_prior",
+    "make_logdensity_fn",
 ]

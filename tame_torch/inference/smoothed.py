@@ -14,6 +14,11 @@ the card, its plain twin :mod:`tame_torch.ops.tridiag` on the CPU):
     O   = -Phi' Q^-1        (precision block (t, t+1))
     b_t = eta_obs[t]        (time coupling handled exactly)
 
+With ``smoother="parallel"`` the same systems are solved by the
+O(log T)-depth associative-scan smoother
+(:func:`tame_torch.ops.ptridiag.parallel_block_tridiag_smoother`), which
+takes the observation terms and the AR(1) prior instead of the blocks.
+
 The ELBO has exact cross-time terms: transition expectations use the lag-1
 cross-covariances and the entropy the trajectory log-determinants.
 Damping applies to the means only; covariances come fresh from each solve.
@@ -40,6 +45,7 @@ from tame_torch.ops.fused_smoother import (
     fused_smoother,
     fused_smoother_supported,
 )
+from tame_torch.ops.ptridiag import parallel_block_tridiag_smoother
 
 _LOG2PI = 1.8378770664093453
 
@@ -111,47 +117,66 @@ def warm_init_smoothed_state(Y: torch.Tensor, params: AMEParams,
 
 def smoothed_step(state: SmoothedState, obs: cavi.ObsConstants,
                   pri: cavi.PriorMatrices, params: AMEParams, lr: float,
-                  corrected: bool = True, mask=None) -> SmoothedState:
+                  corrected: bool = True, parallel: bool = False,
+                  mask=None) -> SmoothedState:
     """One simultaneous update: every node's trajectory re-solved exactly
     against the other nodes' current means, in one
     :func:`fused_smoother` call.  ``mask`` (missing-data fits) as in
-    ``cavi.cavi_step_jacobi``.
+    ``cavi.cavi_step_jacobi``.  ``parallel=True`` solves with the
+    time-parallel associative-scan smoother
+    (:func:`~tame_torch.ops.ptridiag.parallel_block_tridiag_smoother`,
+    O(log T) depth), which takes the observation terms and the AR(1)
+    prior ``(Phi, Q, Sigma0)`` and launches no K4.
 
     Under a mask the JAX package leaves its Pallas smoother for the scan;
-    the port sends every smooth through :func:`fused_smoother` (K4 on the
-    card) all the same: the smoother solves whatever D and b it is given,
-    so the result is the same."""
+    the port sends every sequential smooth through :func:`fused_smoother`
+    (K4 on the card) all the same: the smoother solves whatever D and b
+    it is given, so the result is the same."""
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
     _, _, U, V = dyad_ops.split_state(state.X_mean, r)
     D_obs = (cavi._obs_precision(U, V, params.R_inv) if mask is None
              else cavi._masked_obs_precision(mask, U, V, params.R_inv))
-    D = D_obs + cavi._prior_precision(pri, T)[None]
     b = cavi._obs_nat_param(obs, state.X_mean, r, params.R_inv, corrected,
                             mask=mask)
-    out = fused_smoother(D, -pri.Qinv_Phi.T, b)
+    out = _trajectory_solver(pri, params, T, parallel)(D_obs, b)
     return SmoothedState(X_mean=lr * out.mean + (1.0 - lr) * state.X_mean,
                          X_cov=out.cov, X_cross=out.cross_cov,
                          logdets=out.logdet)
 
 
+def _trajectory_solver(pri: cavi.PriorMatrices, params: AMEParams, T: int,
+                       parallel: bool):
+    """``(D_obs, b) -> SmootherResult`` for one update: the
+    associative-scan smoother on the observation terms, or
+    :func:`fused_smoother` on the full precision blocks (the prior
+    blocks, built once here, added)."""
+    if parallel:
+        return lambda D_obs, b: parallel_block_tridiag_smoother(
+            D_obs, b, params.Phi, params.Q, params.Sigma0)
+    prior_D = cavi._prior_precision(pri, T)[None]
+    O = -pri.Qinv_Phi.T
+    return lambda D_obs, b: fused_smoother(D_obs + prior_D, O, b)
+
+
 def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
                         pri: cavi.PriorMatrices, params: AMEParams,
                         lr: float, num_blocks: int,
-                        corrected: bool = True, mask=None) -> SmoothedState:
+                        corrected: bool = True, parallel: bool = False,
+                        mask=None) -> SmoothedState:
     """Block Gauss-Seidel smoothed update: node blocks re-solved in
     sequence, each block's trajectories solved exactly against the
     freshest other-node means (fresh statistics per phase, as
     ``cavi.cavi_step_block``, masked partner sums under ``mask``; no
     neighbour-mean prior coupling, time is handled exactly), one
-    :func:`fused_smoother` call per block.  Works on a copy of ``state``,
-    updated in place."""
+    :func:`fused_smoother` call per block (the associative-scan smoother
+    under ``parallel=True``, as in :func:`smoothed_step`).  Works on a
+    copy of ``state``, updated in place."""
     n, T, d = state.X_mean.shape
     if n % num_blocks != 0:
         raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
     bs = n // num_blocks
-    prior_D = cavi._prior_precision(pri, T)[None]
-    O = -pri.Qinv_Phi.T
+    solve = _trajectory_solver(pri, params, T, parallel)
     contract = cavi._block_mask_contract(mask, num_blocks, bs)
     X_mean = state.X_mean.clone()
     X_cov, X_cross = state.X_cov.clone(), state.X_cross.clone()
@@ -161,7 +186,7 @@ def smoothed_step_block(state: SmoothedState, obs: cavi.ObsConstants,
         sl = slice(blk * bs, (blk + 1) * bs)
         D_obs, bvec = cavi._block_obs_terms(X_mean, obs, params.R_inv, blk,
                                             bs, corrected, contract)
-        out = fused_smoother(D_obs + prior_D, O, bvec)
+        out = solve(D_obs, bvec)
         X_mean[sl] = lr * out.mean + (1.0 - lr) * X_mean[sl]
         X_cov[sl] = out.cov
         X_cross[sl] = out.cross_cov
@@ -271,17 +296,23 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     """Run smoothed CAVI to convergence (the JAX ``fit_cavi_smoothed``
     contract).
 
-    Every smooth goes through
-    :func:`~tame_torch.ops.fused_smoother.fused_smoother`: K4 on a CUDA
-    ``Y`` (which raises outside :func:`fused_smoother_supported`), its
-    plain twin on a CPU one.  ``fused`` keeps the JAX keyword and is only
-    checked: ``True`` raises up front outside the envelope and together
-    with ``smoother="parallel"``.  ``TAME_DISABLE_FUSED_FIT``, which sends
-    the JAX fit to its scan smoother, is not read here: the smoothed fit
-    always runs K4 on the card.  ``smoother``: ``"auto"``/``"sequential"``.
-    ``update_mode``: ``"jacobi"`` (:func:`smoothed_step`), ``"block"``
-    (:func:`smoothed_step_block`, ``num_blocks`` defaulting to the largest
-    divisor of n that is <= 16) or ``"auto"`` (block once n >= 256).
+    ``smoother`` picks the trajectory solver: ``"sequential"`` (and
+    ``"auto"``, which resolves to it, as in the JAX package) sends every
+    smooth through :func:`~tame_torch.ops.fused_smoother.fused_smoother`:
+    K4 on a CUDA ``Y`` (which raises outside
+    :func:`fused_smoother_supported`), its plain twin on a CPU one.
+    ``"parallel"`` takes the O(log T)-depth associative-scan smoother
+    (:mod:`tame_torch.ops.ptridiag`, batched ``torch.linalg`` solves on
+    either device) in the Jacobi, block and masked modes, and launches no
+    K4.  ``fused`` keeps the JAX keyword and is only checked: ``True``
+    raises up front outside the envelope and together with
+    ``smoother="parallel"`` (``"auto"`` yields to the parallel smoother).
+    ``TAME_DISABLE_FUSED_FIT``, which sends the JAX fit to its scan
+    smoother, is not read here: the sequential smoothed fit always runs K4
+    on the card.  ``update_mode``: ``"jacobi"`` (:func:`smoothed_step`),
+    ``"block"`` (:func:`smoothed_step_block`, ``num_blocks`` defaulting to
+    the largest divisor of n that is <= 16) or ``"auto"`` (block once
+    n >= 256).
 
     Stops once the relative ELBO change stays below ``tolerance`` for
     ``patience`` consecutive iterations, or when the ELBO goes non-finite
@@ -294,8 +325,7 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     ``Y`` are never read, and ``TAME_PACKED_MASK=1`` sends the masked
     contractions through K5, packed with the block count.  Under a mask
     the JAX function leaves its Pallas smoother; this one does not (see
-    :func:`smoothed_step`).  Not ported yet (raises
-    ``NotImplementedError``): ``smoother="parallel"``.
+    :func:`smoothed_step`).
     """
     if diag_mode not in ("exact", "stats"):
         raise ValueError(f"unknown diag_mode: {diag_mode!r}")
@@ -307,9 +337,9 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
         raise ValueError(f"unknown fused: {fused!r}")
     if smoother == "parallel" and fused is True:
         raise ValueError("fused=True and smoother='parallel' are mutually "
-                         "exclusive solver choices; drop one")
-    if smoother == "parallel":
-        raise NotImplementedError("smoother='parallel' is not ported yet")
+                         "exclusive solver choices; drop one (fused='auto' "
+                         "yields to the parallel smoother)")
+    parallel = smoother == "parallel"
     buf = cavi.history_buffer(max_iter)
     n, _, T, _ = Y.shape
     d = init.X_mean.shape[-1]
@@ -338,11 +368,11 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     while it < max_iter and rule.running:
         if update_mode == "block":
             state = smoothed_step_block(state, fi.obs, pri, params, lr,
-                                        num_blocks, corrected,
+                                        num_blocks, corrected, parallel,
                                         mask=fi.mask_c)
         else:
             state = smoothed_step(state, fi.obs, pri, params, lr, corrected,
-                                  mask=fi.mask_c)
+                                  parallel, mask=fi.mask_c)
         sq, cross = cavi.residual_stats(fi, state.X_mean, params.R_inv,
                                         diag_mode)
         elbo_t = smoothed_elbo_from_quad(p_ * sq + q_ * cross, params, pri,

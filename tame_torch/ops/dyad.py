@@ -29,10 +29,11 @@ def dyadic_mean_static(A: torch.Tensor, M: torch.Tensor,
 
 def dyadic_fwd_temporal(X: torch.Tensor, r: int) -> torch.Tensor:
     """Forward half of the dyadic mean: ``fwd[i,j,t] = a_i + b_j + U_i.V_j``
-    of shape (n, n, T)."""
+    of shape (n, n, T); leading batch axes of X (..., n, T, d) carry over,
+    (..., n, n, T)."""
     a, b, U, V = split_state(X, r)
-    additive = a[:, None, :] + b[None, :, :]
-    mult = torch.einsum("itr,jtr->ijt", U, V)
+    additive = a[..., :, None, :] + b[..., None, :, :]
+    mult = torch.einsum("...itr,...jtr->...ijt", U, V)
     return additive + mult
 
 

@@ -11,6 +11,7 @@ import os
 import pathlib
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,9 +25,12 @@ from tame_torch.scripts import (
     jacobi_scale_probe,
     layout_probe3,
     masked_scale_probe,
+    mcmc_bench,
     poisson_scale_probe,
+    ptridiag_bench,
     scale_bench,
     seq_probe,
+    smc_bench,
     smoother_bench,
     spd_probe,
 )
@@ -119,6 +123,47 @@ def test_smoother_bench(capsys):
                                      "--repeats", "1"])
     assert set(res["rel_err"]) == {"mean", "cov", "cross_cov", "logdet"}
     assert "rel err" in capsys.readouterr().out
+
+
+def test_ptridiag_bench(capsys):
+    rows = ptridiag_bench.main(CPU + ["--sizes", "3x5,2x17"])
+    assert [(r["n"], r["T"]) for r in rows] == [(3, 5), (2, 17)]
+    assert all(r["max_abs_dmean"] <= ptridiag_bench.MEAN_ATOL
+               and r["sequential_ms"] > 0 and r["parallel_ms"] > 0
+               for r in rows)
+    assert "max|dmean|" in capsys.readouterr().out
+
+
+def test_sampler_benches_write_only_their_out_path(tmp_path, monkeypatch,
+                                                   capsys):
+    """``mcmc_bench`` and ``smc_bench`` at tiny sizes: their JSON keys, and
+    no file but ``--out`` (never the root ``MCMC_BENCH.json`` /
+    ``SMC_BENCH.json``)."""
+    tracked = {name: (REPO / name).read_bytes()
+               for name in ("MCMC_BENCH.json", "SMC_BENCH.json")}
+    monkeypatch.chdir(tmp_path)
+    tiny = CPU + ["--n", "6", "--T", "3", "--r", "1"]
+    res = mcmc_bench.main(tiny + ["--chains", "2", "--warmup", "4",
+                                  "--samples", "6", "--max-depth", "3",
+                                  "--k-scalars", "5"])
+    assert res["transitions"] == 10 and res["syncs_per_transition"] > 0
+    assert res["total_draws"] == 12 and res["config"]["k_scalars"] == 5
+    for key in ("ess_per_s_median", "logdensity_rhat",
+                "smf_effect_size_median", "smoothed_effect_size_median"):
+        assert np.isfinite(res[key]), key
+    assert list(tmp_path.iterdir()) == []
+    out = tmp_path / "smc.json"
+    res = smc_bench.main(tiny + ["--particles", "16", "--buffer", "40",
+                                 "--moves", "1", "--leapfrog", "2",
+                                 "--replicates", "2", "--stages-per-call",
+                                 "3", "--out", str(out)])
+    assert [p.name for p in tmp_path.iterdir()] == ["smc.json"]
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert len(res["wall_s_per_replicate"]) == 2
+    assert np.isfinite(res["log_evidence_mean"] - res["exact_elbo"])
+    assert all(tracked[name] == (REPO / name).read_bytes()
+               for name in tracked)
+    assert "EVIDENCE" in capsys.readouterr().out
 
 
 def test_masked_scale_probe_with_packed_mask(monkeypatch):
