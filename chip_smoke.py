@@ -117,12 +117,48 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     one replicate, preconditioned through K3: beta reaches 1 inside the
     buffer and the log-evidence lies above the exact ELBO less 3 nats;
 27. random-walk moves at that shape with step scales 0.5 and 0.15, 10
-    stages each: the mean acceptance printed (ROADMAP C.5).
+    stages each: the mean acceptance printed (ROADMAP C.5);
+28. the command line in this process (``tame_torch.cli.main``, its output
+    captured): ``fit`` at n=2000, T=50, r=4 (Good SMF, 16-block updates,
+    exact diagnostics, <= 150 iterations), 16 K1 and 1 K2 launches per
+    iteration; the same fit through the engine alone, whose iterations,
+    final ELBO and MSE must equal the CLI's at the printed precision; the
+    two in turns (engine, CLI, CLI, engine) for the CLI's overhead and its
+    wall-time split (data, init, fit, diagnostics, held-out metric);
+29. ``fit --missing-frac 0.3`` at that shape: K1 and K2, held-out MSE
+    < 2 x observed + 0.05;
+30. ``fit --method smoothed --init warm`` at that shape: 16 K4 launches per
+    iteration;
+31. ``fit --checkpoint D --checkpoint-every 10 --max-iter 20``, then
+    ``--resume --max-iter 40``, against a one-shot ``--max-iter 40``: the
+    final checkpoints bit for bit equal and in the ``tamestore`` format;
+32. ``fit --method binary`` / ``poisson`` at n=1000, T=20, r=2 with 20 %
+    hidden: K1 and K2 only, the held-out accuracy / deviance finite;
+33. ``learn`` at n=1000, T=20, r=2, 3 EM iterations: K4, phi moved from 0.3
+    toward 0.8;
+34. ``sample`` at the CLI's defaults (n=15, T=10, r=2): NUTS (draws cut to
+    30 + 30), HMC (50 + 50) and SMC (256 particles), each preconditioned
+    through K3 or K1: mean accept finite, SMC's beta reaches 1;
+35. ``demo --lr 0.7 --max-iter 150`` (figures into a temporary directory
+    where matplotlib is installed): one K3 launch per engine, Naive ~ Good
+    << Bad;
+36. ``three-way``, ``mult-strength``, ``sensitivity`` (the n_nodes sweep,
+    and the missing_frac sweep 0, 0.1, 0.3, 0.5) and ``binary-compare``,
+    each at its defaults with ``--no-save``: K3 for Naive, Good and Bad and
+    K4 for the smoothed fit; one K3 launch per fit (6); one per replicate
+    (30); K3 unmasked and K1 masked; K1, K2 and K4; seconds per fit;
+37. the three-way results saved (``save_results``,
+    ``generate_experiment_report``) into a temporary directory and loaded
+    by a process that sees no card: numpy arrays and Python values only,
+    torch not imported; ``three-way`` with its 8 figures there where
+    matplotlib is installed, else one line saying they were not drawn;
+38. ``python -m tame_torch.quick_test`` on the card: exit 0.
 
-Phases 22-27 each print their wall time beside the card's name and power
-limit.  Each of phases 3-27 is a path of its own (phases 7, 11, 13, 14,
-16-18, 23 and 25 several): the launch counters are zeroed just before it
-and read just after, and each path must have launched its kernels.  K6
+Phases 22-38 each print their wall time beside the card's name and power
+limit; phases 28-38 write only into temporary directories.  Each of
+phases 3-38 is a path of its own (phases 7, 11, 13, 14, 16-18, 23, 25 and
+28-37 several): the launch counters are zeroed just before it and read
+just after, and each path must have launched its kernels.  K6
 lies on no path: its ``launches`` are its comparison launches in phase
 2.  The second-to-last line is a JSON object describing each kernel
 (``launches`` summed over the paths), the last is the device record.
@@ -1928,6 +1964,456 @@ def sampler_paths(drive) -> None:
     print(f"sampler and parallel-smoother paths: {json.dumps(SAMPLERS)}")
 
 
+# ---------------------------------------------------------------------------
+# The host layers: the command line, the experiments, the demo, the setup
+# check
+# ---------------------------------------------------------------------------
+
+HOST: dict = {}         # the host-layer phases' numbers, printed at the end
+NORTH_STAR = dict(n_nodes=2000, n_time=50, latent_dim=4)
+FAMILY_SHAPE = dict(n_nodes=1000, n_time=20, latent_dim=2)
+
+
+def shape_flags(shape: dict) -> list:
+    """The CLI's model-size flags for a shape."""
+    return [a for k, v in shape.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+# The sampler phases cut the CLI's 200 + 200 draws to fit the time budget
+# (NUTS 30 + 30, HMC 50 + 50; the model, the chains and SMC's particles stay
+# at the CLI's defaults).
+SAMPLER_DRAWS = {"nuts": ["--num-warmup", "30", "--num-samples", "30"],
+                 "hmc": ["--num-warmup", "50", "--num-samples", "50"],
+                 "smc": []}
+
+
+def cli_run(argv: list) -> str:
+    """``tame_torch.cli.main(argv)`` in this process on the card, its
+    standard output captured; requires exit code 0 and returns the
+    output."""
+    import io
+
+    from tame_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    out = buf.getvalue()
+    require(rc == 0, f"python -m tame_torch {' '.join(argv)} exited {rc}:\n"
+            f"{out[-2000:]}")
+    return out
+
+
+def grab(out: str, pattern: str, group: int = 1) -> str:
+    """The first match of ``pattern`` in a command's output."""
+    import re
+
+    m = re.search(pattern, out)
+    require(m is not None, f"no line matching {pattern!r} in:\n{out[-2000:]}")
+    return m.group(group)
+
+
+def grab_float(out: str, pattern: str) -> float:
+    value = float(grab(out, pattern))
+    require(math.isfinite(value), f"{pattern!r} printed {value}")
+    return value
+
+
+def stage_seconds(out: str) -> dict:
+    """The ``fit`` subcommand's stage split (data, init, fit, diagnostics,
+    held_out) from its wall-time line."""
+    line = grab(out, r"Wall time \(s, host clock, device synchronized\): "
+                r"(.*)")
+    return {k: float(v) for k, v in (kv.split("=") for kv in line.split())}
+
+
+def phase_cli_fit(extra: list) -> dict:
+    """``python -m tame_torch fit`` at the north star (n=2000, T=50, r=4,
+    Good SMF, 16-block updates, exact diagnostics, 150 iterations at
+    most): the printed final ELBO and MSE, the stage split and the
+    command's wall time (host clock, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cli_run(["fit", *shape_flags(NORTH_STAR), "--method", "good",
+                   "--max-iter", "150", *extra])
+    torch.cuda.synchronize()
+    res = dict(n_iter=int(grab(out, r"Number of iterations: (\d+)")),
+               elbo=grab(out, r"Final ELBO:\s+(\S+)"),
+               mse=grab(out, r"Final reconstruction MSE: (\S+)"),
+               stages=stage_seconds(out), wall_s=time.perf_counter() - t0)
+    if extra:
+        res.update(observed=grab_float(out, r"Observed-dyad recon MSE: "
+                                            r"(\S+)"),
+                   held_out=grab_float(out, r"Held-out-dyad recon MSE: "
+                                            r"(\S+)"))
+    return res
+
+
+def phase_cli_overhead() -> dict:
+    """The CLI's fit against the engine alone in turns (engine, CLI, CLI,
+    engine), host clock: the medians and the CLI's overhead over the
+    engine."""
+    runs = {"engine": [], "cli": []}
+    for who in ("engine", "cli", "cli", "engine"):
+        runs[who].append(phase_direct_fit() if who == "engine"
+                         else phase_cli_fit([]))
+    engine = statistics.median(r["data_and_init_s"] + r["fit_s"]
+                               for r in runs["engine"])
+    cli = statistics.median(r["wall_s"] for r in runs["cli"])
+    res = dict(engine_s=[r["data_and_init_s"] + r["fit_s"]
+                         for r in runs["engine"]],
+               engine_fit_s=[r["fit_s"] for r in runs["engine"]],
+               cli_s=[r["wall_s"] for r in runs["cli"]],
+               cli_stages=[r["stages"] for r in runs["cli"]],
+               overhead_s=cli - engine)
+    HOST["fit n=2000 in turns"] = res
+    print(f"n=2000 fit in turns (engine, CLI, CLI, engine): engine "
+          f"{res['engine_s']} s (fit {res['engine_fit_s']}), CLI "
+          f"{res['cli_s']} s, stages {res['cli_stages']}; CLI overhead "
+          f"(medians) {res['overhead_s']} s", flush=True)
+    return res
+
+
+def phase_direct_fit() -> dict:
+    """The same fit as the CLI's, through the engine alone: the model and
+    engine the ``fit`` subcommand builds from its defaults (seed 42, lr
+    0.7, random init, tolerance 1e-4), its final ELBO and MSE formatted as
+    the CLI prints them, and its wall time (host clock, synchronized)."""
+    from tame_torch import TemporalAMEModel, TemporalAMEStructuredMFVI
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = TemporalAMEModel(**NORTH_STAR, seed=42)
+    model.generate_data(return_latents=True)
+    vi = TemporalAMEStructuredMFVI(model, factorization="good",
+                                   learning_rate=0.7, seed=42)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    h = vi.fit(max_iter=150, tolerance=1e-4, verbose=False, check_every=10)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(n_iter=len(h["elbo"]), elbo=f"{h['elbo'][-1]:10.2f}".strip(),
+                mse=f"{h['reconstruction_error'][-1]:.6f}",
+                data_and_init_s=t1 - t0, fit_s=t2 - t1)
+
+
+def phase_cli_smoothed() -> int:
+    out = cli_run(["fit", *shape_flags(NORTH_STAR), "--method", "smoothed",
+                   "--init", "warm"])
+    HOST["smoothed"] = stage_seconds(out)
+    return int(grab(out, r"Number of iterations: (\d+)"))
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def phase_cli_checkpoint() -> int:
+    """``fit --checkpoint D --checkpoint-every 10 --max-iter 20``, then
+    ``--resume --max-iter 40``, against a one-shot ``--max-iter 40``: the
+    final checkpoints' arrays and scalars bit for bit equal, both in the
+    native ``tamestore`` format.  Returns the iterations of the one-shot
+    fit."""
+    import tempfile
+
+    import numpy as np
+
+    from tame_torch.io import load_checkpoint
+
+    base = ["fit", *shape_flags(NORTH_STAR), "--method", "good"]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = f"{tmp}/resumed", f"{tmp}/one_shot"
+        cli_run(base + ["--checkpoint", a, "--checkpoint-every", "10",
+                        "--max-iter", "20"])
+        out = cli_run(base + ["--checkpoint", a, "--resume", "--max-iter",
+                              "40"])
+        resumed_iter = int(grab(out, r"Number of iterations: (\d+)"))
+        out = cli_run(base + ["--checkpoint", b, "--max-iter", "40"])
+        n_iter = int(grab(out, r"Number of iterations: (\d+)"))
+        require(resumed_iter == n_iter, f"the resumed CLI fit ran "
+                f"{resumed_iter} iterations, the one-shot {n_iter}")
+        fa, fb = (_flat(load_checkpoint(p)) for p in (a, b))
+        require(fa.keys() == fb.keys(), f"checkpoint keys differ: "
+                f"{sorted(fa)} vs {sorted(fb)}")
+        for k in fa:
+            x, y = np.asarray(fa[k]), np.asarray(fb[k])
+            require(x.dtype == y.dtype and x.shape == y.shape
+                    and x.tobytes() == y.tobytes(),
+                    f"checkpoint entry {k} differs between the resumed and "
+                    f"the one-shot CLI fit")
+        formats = {json.loads(pathlib.Path(p, "manifest.json").read_text())
+                   ["format"] for p in (a, b)}
+        require(formats == {"tamestore"}, f"checkpoints written as "
+                f"{formats}")
+    print(f"CLI checkpointed fit n=2000 T=50 r=4: 20 iterations in "
+          f"segments of 10, resumed to 40 = the one-shot fit of {n_iter} "
+          f"bit for bit ({len(fa)} entries: {sorted(fa)}); format "
+          f"tamestore", flush=True)
+    return n_iter
+
+
+def phase_cli_family(method: str) -> dict:
+    out = cli_run(["fit", *shape_flags(FAMILY_SHAPE), "--method", method,
+                   "--missing-frac", "0.2"])
+    label = "accuracy" if method == "binary" else "mean deviance"
+    res = dict(n_iter=int(grab(out, r"Number of iterations: (\d+)")),
+               observed=grab_float(out, rf"Observed-dyad {label}: (\S+)"),
+               held_out=grab_float(out, rf"Held-out-dyad {label}: (\S+)"),
+               stages=stage_seconds(out))
+    HOST[f"fit {method}"] = res
+    print(f"CLI fit --method {method} n=1000 T=20 r=2, 20 % hidden: "
+          f"{res['n_iter']} iterations, observed {label} "
+          f"{res['observed']}, held-out {res['held_out']}; stages (s) "
+          f"{res['stages']}", flush=True)
+    return res
+
+
+def phase_cli_learn() -> float:
+    out = cli_run(["learn", *shape_flags(FAMILY_SHAPE), "--n-em", "3"])
+    phi = grab_float(out, r"Learned after \d+ EM iterations: phi=(\S+)")
+    HOST["learn phi"] = phi
+    print(f"CLI learn n=1000 T=20 r=2, 3 EM iterations: phi 0.3 -> {phi} "
+          f"(true 0.8)", flush=True)
+    require(abs(phi - 0.8) < abs(0.3 - 0.8), f"EM did not move phi toward "
+            f"0.8: {phi}")
+    return phi
+
+
+def phase_cli_sample(sampler: str) -> dict:
+    out = cli_run(["sample", "--sampler", sampler, *SAMPLER_DRAWS[sampler]])
+    if sampler == "smc":
+        require("WARNING" not in out, f"SMC did not reach beta = 1:\n{out}")
+        res = dict(stages=int(grab(out, r"(\d+) adaptive stages")),
+                   log_evidence=grab_float(out, r"log-evidence = (\S+),"))
+    else:
+        res = dict(accept=grab_float(out, r"mean accept = (\S+),"))
+    HOST[f"sample {sampler}"] = res
+    print(f"CLI sample --sampler {sampler} (n=15, T=10, r=2): {res}",
+          flush=True)
+    return res
+
+
+def demo_mse(out: str) -> dict:
+    """Final MSE by method from ``compare_methods``' ranking."""
+    import re
+
+    block = out.split("Final reconstruction_error:")[1].split("\n\n")[0]
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\d+\. (Naive MF|Good SMF|Bad SMF)\s*: (\S+)", block)}
+
+
+def phase_cli_demo(outdir: str) -> dict:
+    out = cli_run(["demo", "--lr", "0.7", "--max-iter", "150", "--outdir",
+                   outdir])
+    mse = demo_mse(out)
+    HOST["demo mse"] = mse
+    naive, good, bad = mse["Naive MF"], mse["Good SMF"], mse["Bad SMF"]
+    print(f"CLI demo lr 0.7, 150 iterations: final MSE {mse}", flush=True)
+    require(naive < 0.5 and good < 0.5 and abs(naive - good) < 0.05,
+            f"demo: Naive and Good did not reach a low, equal MSE: {mse}")
+    require(not math.isfinite(bad) or (bad > 1.0 and bad > 3.0 * good),
+            f"demo: Bad SMF did not blow up: {mse}")
+    return mse
+
+
+def phase_cli_experiment(argv: list, fits: int) -> str:
+    """One experiment subcommand with ``--no-save``; its host-clock
+    seconds per fit (``fits`` of them) go to ``HOST``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cli_run(argv + ["--no-save"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    HOST[" ".join(argv)] = dict(seconds=seconds, per_fit_s=seconds / fits)
+    print(f"CLI {' '.join(argv)}: {seconds} s, {seconds / fits} s per fit "
+          f"({fits} fits)", flush=True)
+    return out
+
+
+def phase_saved_results(tmp: str) -> dict:
+    """The three-way results saved with ``save_results`` and reported with
+    ``generate_experiment_report`` into ``tmp``; a process that sees no
+    card loads the pickle and finds numpy arrays and Python values only,
+    without importing torch."""
+    from tame_torch import TemporalAMEModel
+    from tame_torch.experiments import (generate_experiment_report,
+                                        save_results, setup_experiment_dir)
+    from tame_torch.experiments.three_way_comparison import (
+        run_three_way_comparison)
+
+    results, _ = run_three_way_comparison(learning_rate=0.7,
+                                          save_outputs=False, verbose=False)
+    _, X_true = TemporalAMEModel(n_nodes=15, n_time=10, latent_dim=2,
+                                 seed=42).generate_data(return_latents=True)
+    exp_dir = setup_experiment_dir("three_way_comparison", base_dir=tmp)
+    save_results({name: {k: v for k, v in r.items() if k != "vi"}
+                  for name, r in results.items()}, exp_dir)
+    generate_experiment_report(results, exp_dir, X_true=X_true,
+                               experiment_name="Three-Way Comparison")
+    report = (exp_dir / "report.md").read_text()
+    require("## Parameter Recovery" in report, "the report lacks the "
+            "parameter-recovery table")
+    probe = (
+        "import json, pickle, sys\n"
+        "def leaves(x):\n"
+        "    if isinstance(x, dict):\n"
+        "        for v in x.values(): yield from leaves(v)\n"
+        "    elif isinstance(x, (list, tuple)):\n"
+        "        for v in x: yield from leaves(v)\n"
+        "    else: yield x\n"
+        "d = pickle.load(open(sys.argv[1], 'rb'))\n"
+        "print(json.dumps({'types': sorted({type(v).__module__ + '.' + "
+        "type(v).__name__ for v in leaves(d)}), 'torch_imported': "
+        "'torch' in sys.modules}))\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-c", probe, str(exp_dir / "data" / "results.pkl")],
+        capture_output=True, text=True, env=env, timeout=120)
+    require(proc.returncode == 0, f"loading the pickle without a card "
+            f"failed:\n{proc.stderr}")
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    allowed = {"numpy.ndarray", "builtins.float", "builtins.int",
+               "builtins.str", "builtins.NoneType", "builtins.bool"}
+    require(not seen["torch_imported"] and set(seen["types"]) <= allowed,
+            f"the saved results hold more than numpy and Python values: "
+            f"{seen}")
+    print(f"three-way results saved and reported in {exp_dir}; loaded "
+          f"without a card: leaf types {seen['types']}, torch imported "
+          f"{seen['torch_imported']}", flush=True)
+    return seen
+
+
+def phase_figures(tmp: str) -> None:
+    """``three-way`` with its figures into ``tmp`` where matplotlib is
+    installed; else one line saying the figures were not drawn."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed on this machine: the three-way "
+              "figures were not drawn (figures need matplotlib; the fits, "
+              "the saved results and the report above do not)", flush=True)
+        HOST["figures"] = "not drawn: no matplotlib"
+        return
+    with contextlib.chdir(tmp):
+        cli_run(["three-way"])
+    figs = sorted(p.name for p in pathlib.Path(tmp, "results").glob(
+        "three_way_comparison_*/figures/*.png"))
+    HOST["figures"] = figs
+    print(f"three-way figures drawn: {figs}", flush=True)
+    require(len(figs) == 8, f"three-way drew {len(figs)} figures, not 8")
+
+
+def phase_quick_test() -> None:
+    proc = subprocess.run([sys.executable, "-m", "tame_torch.quick_test"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    print(f"python -m tame_torch.quick_test: exit {proc.returncode}; "
+          f"{(proc.stdout.strip().splitlines() or [''])[-1]}", flush=True)
+    require(proc.returncode == 0, f"python -m tame_torch.quick_test exited "
+            f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr}")
+
+
+def host_layer_paths(drive) -> None:
+    """The command line, the experiments, the demo and the setup check on
+    the card, each a path driven by ``drive`` (the launch counters zeroed
+    before it) and timed beside the card."""
+    import tempfile
+
+    def run(label, fn, *args):
+        return drive(label, timed_phase, label, fn, *args)
+
+    cli, c = run("CLI fit n=2000 Good SMF", phase_cli_fit, [])
+    require(c["spd_solve_inv"] == 16 * cli["n_iter"]
+            and c["logdet_spd"] == cli["n_iter"] and c["fused_fit"] == 0,
+            f"the CLI fit did not run 16 K1 and 1 K2 launches per "
+            f"iteration: {c}")
+    direct, c = run("engine fit n=2000 Good SMF", phase_direct_fit)
+    require(c["spd_solve_inv"] == 16 * direct["n_iter"],
+            f"the engine fit did not run K1 per block phase: {c}")
+    same = all(cli[k] == direct[k] for k in ("n_iter", "elbo", "mse"))
+    HOST["fit n=2000"] = dict(cli=cli, engine=direct)
+    print(f"CLI fit n=2000 T=50 r=4: {cli['n_iter']} iterations, final "
+          f"ELBO {cli['elbo']}, MSE {cli['mse']}; the engine alone: "
+          f"{direct['n_iter']}, {direct['elbo']}, {direct['mse']}",
+          flush=True)
+    require(same, "the CLI's fit departs from the engine's at the printed "
+            "precision")
+    _, c = run("n=2000 fit in turns", phase_cli_overhead)
+    require(c["spd_solve_inv"] == 4 * 16 * cli["n_iter"],
+            f"the fits in turns did not run K1 per block phase: {c}")
+    masked, c = run("CLI fit n=2000 Good SMF, 30 % hidden", phase_cli_fit,
+                    ["--missing-frac", "0.3"])
+    HOST["fit n=2000 masked"] = masked
+    print(f"CLI fit n=2000, 30 % hidden: {masked['n_iter']} iterations, "
+          f"observed MSE {masked['observed']}, held-out MSE "
+          f"{masked['held_out']}; stages (s) {masked['stages']}", flush=True)
+    require(c["spd_solve_inv"] > 0 and c["logdet_spd"] > 0,
+            f"the masked CLI fit did not run K1 and K2: {c}")
+    require(masked["held_out"] < 2.0 * masked["observed"] + 0.05,
+            "the masked CLI fit does not recover the held-out dyads")
+    n_iter, c = run("CLI fit n=2000 smoothed, warm", phase_cli_smoothed)
+    print(f"CLI smoothed fit n=2000: {n_iter} iterations; stages (s) "
+          f"{HOST['smoothed']}", flush=True)
+    require(c["fused_smoother"] == 16 * n_iter, f"the CLI smoothed fit did "
+            f"not launch K4 16 times per iteration ({n_iter}): {c}")
+    n_iter, c = run("CLI checkpointed fit n=2000", phase_cli_checkpoint)
+    # 20 + 20 resumed + 40 one-shot iterations
+    require(n_iter != 40 or (c["spd_solve_inv"] == 16 * 80
+                             and c["logdet_spd"] == 80),
+            f"the checkpointed CLI fits did not run 16 K1 and 1 K2 "
+            f"launches per iteration: {c}")
+    for method in ("binary", "poisson"):
+        res, c = run(f"CLI fit {method} n=1000", phase_cli_family, method)
+        require(c["spd_solve_inv"] > 0 and c["logdet_spd"] > 0
+                and c["fused_fit"] == 0 and c["fused_smoother"] == 0,
+                f"the CLI {method} fit did not run K1 and K2 only: {c}")
+    _, c = run("CLI learn n=1000", phase_cli_learn)
+    require(c["fused_smoother"] > 0, f"the CLI learn did not run K4: {c}")
+    for sampler in ("nuts", "hmc", "smc"):
+        _, c = run(f"CLI sample {sampler}", phase_cli_sample, sampler)
+        require(c["fused_fit"] + c["spd_solve_inv"] > 0, f"the {sampler} "
+                f"preconditioner launched neither K3 nor K1: {c}")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, c = run("CLI demo", phase_cli_demo, f"{tmp}/demo")
+        require(c["fused_fit"] == 3, f"the demo did not run one K3 launch "
+                f"per engine: {c}")
+        _, c = run("CLI three-way", phase_cli_experiment, ["three-way"], 4)
+        require(c["fused_fit"] == 3 and c["fused_smoother"] > 0,
+                f"three-way did not run K3 for Naive, Good and Bad and K4 "
+                f"for the smoothed fit: {c}")
+        _, c = run("CLI mult-strength", phase_cli_experiment,
+                   ["mult-strength"], 6)
+        require(c["fused_fit"] == 6, f"mult-strength did not run one K3 "
+                f"launch per fit (6): {c}")
+        # 5 values x 2 methods x 3 replicates
+        _, c = run("CLI sensitivity n_nodes", phase_cli_experiment,
+                   ["sensitivity"], 30)
+        require(c["fused_fit"] == 30, f"the n_nodes sweep did not run one "
+                f"K3 launch per replicate (5 values x 2 methods x 3): {c}")
+        _, c = run("CLI sensitivity missing_frac", phase_cli_experiment,
+                   ["sensitivity", "--parameter", "missing_frac", "--values",
+                    "0.0", "0.1", "0.3", "0.5"], 24)
+        require(c["fused_fit"] == 6 and c["spd_solve_inv"] > 0,
+                f"the missing_frac sweep did not run K3 unmasked and K1 "
+                f"masked: {c}")
+        _, c = run("CLI binary-compare", phase_cli_experiment,
+                   ["binary-compare"], 3)
+        require(c["spd_solve_inv"] > 0 and c["logdet_spd"] > 0
+                and c["fused_smoother"] > 0, f"binary-compare did not run "
+                f"K1, K2 and K4: {c}")
+        drive("three-way saved", timed_phase, "three-way saved",
+              phase_saved_results, tmp)
+        drive("three-way figures", timed_phase, "three-way figures",
+              phase_figures, tmp)
+    drive("quick_test", timed_phase, "quick_test", phase_quick_test)
+    print(f"host-layer paths: {json.dumps(HOST)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() "
@@ -2145,6 +2631,7 @@ def main() -> int:
     print(f"non-Gaussian paths: {json.dumps(FAMILY)}")
 
     sampler_paths(drive)
+    host_layer_paths(drive)
 
     import shutil
 

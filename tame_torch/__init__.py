@@ -2,8 +2,12 @@
 
 The port of :mod:`tame` (JAX on a TPU) to PyTorch on an NVIDIA H100.  Its
 layout mirrors ``tame/`` (``config``, ``models``, ``ops``, ``inference``,
-``io``, ``utils``);
-it imports ``torch`` and numpy and never JAX.  Tensors are float32 and
+``io``, ``utils``, ``experiments``, ``visualization``, the command line
+``cli`` with ``python -m tame_torch``, ``demo`` and the setup check
+``quick_test``, and the scripts of the repo's root and ``scripts/`` under
+``scripts``); it imports ``torch`` and numpy and never JAX.  Importing the
+package imports neither ``experiments`` nor ``visualization`` (the plots
+need matplotlib, imported only where a figure is drawn).  Tensors are float32 and
 carry their own device; randomness comes from explicit
 ``torch.Generator`` objects.  The hand-written Hopper kernels
 (``csrc/``) are built lazily at first use on a CUDA tensor; CPU tensors
