@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl-leg   # 2-4 cards: phases 39 and 41 alone
 
 Phases (each raises on failure; the script exits 0 only if all pass):
 
@@ -152,13 +153,38 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     by a process that sees no card: numpy arrays and Python values only,
     torch not imported; ``three-way`` with its 8 figures there where
     matplotlib is installed, else one line saying they were not drawn;
-38. ``python -m tame_torch.quick_test`` on the card: exit 0.
+38. ``python -m tame_torch.quick_test`` on the card: exit 0;
+39. ``tame_torch.parallel`` on a one-rank NCCL mesh (``make_mesh()``, an
+    in-memory store): the n=2000, T=50, r=4 Good-SMF block fit (16
+    blocks, lr 0.8) sharded, beside the plain fit: the same stop, the ELBO
+    history within 1e-6 relative, max |dX_mean| printed, 16 K1 and 1 K2
+    launches per iteration each and K3 never; then the 100-iteration
+    fixed-budget fit on that mesh and the one-rank warm smoothed fit (10
+    iterations) as references, and the plain and one-rank fits timed in
+    turns (30 iterations each);
+40. two spawned ranks sharing the card (gloo, staged through host memory;
+    the kernels built by this process, loaded by the ranks), each drawing
+    the data on the card and keeping its rows: the same fit at the fixed
+    budget (max |dX_mean| < 5e-4, ELBO within 1e-5 of phase 39's, 16 K1
+    and 1 K2 launches per iteration per rank) and to the stop (the same
+    iteration on both ranks), ms per iteration and the collectives of one
+    iteration counted;
+41. the same with NCCL and one rank per card (up to 4) where the machine
+    has 2 cards or more; otherwise a line says it did not run;
+42. in those worlds, the warm smoothed fit sharded over nodes: 16 K4
+    launches per iteration per rank, ELBO within 1e-5 of phase 39's;
+43. in those worlds, the batch axis at ``tests/test_parallel.py``'s sizes:
+    HMC 64 chains within 1e-5 of the unsharded run, SMC 64 particles and
+    the evidence within 1e-4, NUTS finite with the mean within 0.5;
+44. ``tame_torch.scripts.multihost_probe`` and ``multihost_proof`` on the
+    card (two processes, gloo): 120, and the proof's bounds.
 
-Phases 22-38 each print their wall time beside the card's name and power
+Phases 22-44 each print their wall time beside the card's name and power
 limit; phases 28-38 write only into temporary directories.  Each of
-phases 3-38 is a path of its own (phases 7, 11, 13, 14, 16-18, 23, 25 and
-28-37 several): the launch counters are zeroed just before it and read
-just after, and each path must have launched its kernels.  K6
+phases 3-44 is a path of its own (phases 7, 11, 13, 14, 16-18, 23, 25,
+28-37 and 39-44 several): the launch counters are zeroed just before it
+and read just after, and each path must have launched its kernels; a
+spawned rank zeroes and reads its own, and its counts join the sums.  K6
 lies on no path: its ``launches`` are its comparison launches in phase
 2.  The second-to-last line is a JSON object describing each kernel
 (``launches`` summed over the paths), the last is the device record.
@@ -2414,7 +2440,369 @@ def host_layer_paths(drive) -> None:
     print(f"host-layer paths: {json.dumps(HOST)}", flush=True)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# tame_torch.parallel: fits sharded over ranks, chains over the batch axis
+# ---------------------------------------------------------------------------
+
+PARALLEL: dict = {}     # the sharded phases' numbers, printed at the end
+SHARDED_FIT = dict(structure="full", update_mode="block", num_blocks=16,
+                   learning_rate=0.8)
+ONE_RANK_ELBO_RTOL = 1e-6   # one rank: the single-device arithmetic
+# Several ranks: the ELBO's sums all-reduced in another order
+# (multihost_proof.py's bounds).
+SHARDED_DX, SHARDED_ELBO_RTOL = 5e-4, 1e-5
+SMOOTHED_ELBO_RTOL = 1e-5
+BUDGET, SMOOTHED_ITERS, TURN_ITERS = 100, 10, 30
+ATOL_HMC, ATOL_SMC = 1e-5, 1e-4
+
+
+def north_star_inputs(device="cuda"):
+    """``north_star_model``'s data (drawn on the card), its parameters and
+    a random init from a CPU generator seeded 1: the same numbers in
+    every process."""
+    from tame_torch.inference import cavi
+
+    model = north_star_model()
+    init = cavi.init_state(torch.Generator().manual_seed(1), 2000, 50, 10,
+                           "full", 0.1, 0.5)
+    return model.Y, model.params.to(model.Y.device), init
+
+
+def on_card(state):
+    return type(state)(*(t.cuda() for t in state))
+
+
+def max_rel(got, ref) -> float:
+    got, ref = torch.as_tensor(got), torch.as_tensor(ref)
+    return ((got - ref).abs() / ref.abs()).max().item()
+
+
+def counted(wrappers: dict, fn):
+    """``(fn(), launches)`` with the counters zeroed before it (in a
+    spawned rank, whose counters are its own)."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def kernel_wrappers() -> dict:
+    from tame_torch.ops import cholesky as ch
+    from tame_torch.ops import fused_fit as ff
+    from tame_torch.ops import fused_smoother as fs
+
+    return {"spd_solve_inv": ch.spd_solve_inv_kernel,
+            "logdet_spd": ch.logdet_spd_kernel,
+            "fused_fit": ff.fused_fit_kernel,
+            "fused_smoother": fs.fused_smoother_kernel}
+
+
+def sampler_model():
+    from tame_torch import TemporalAMEModel
+
+    model = TemporalAMEModel(n_nodes=6, n_time=3, latent_dim=1, seed=7)
+    model.generate_data()
+    return model
+
+
+def sharded_samplers(mesh) -> dict:
+    """HMC (64 chains), NUTS (8) and SMC (64 particles) at
+    ``tests/test_parallel.py``'s sizes with the chains over ``mesh``'s
+    batch axis, beside the same samplers unsharded on this rank."""
+    from tame_torch.inference import (
+        TemporalAMEHMC,
+        TemporalAMENUTS,
+        TemporalAMESMC,
+    )
+
+    model = sampler_model()
+    hmc = TemporalAMEHMC(model, num_chains=64, num_leapfrog=5, seed=3,
+                         precondition=False)
+    t0 = time.perf_counter()
+    sh = hmc.sample(num_warmup=15, num_samples=15, mesh=mesh)
+    hmc_s = time.perf_counter() - t0
+    ref = hmc.sample(num_warmup=15, num_samples=15)
+    nuts = TemporalAMENUTS(model, num_chains=8, max_depth=4, seed=3,
+                           precondition=False)
+    nu = nuts.sample(num_warmup=10, num_samples=10, mesh=mesh).full()
+    nu_ref = nuts.sample(num_warmup=10, num_samples=10)
+    smc = TemporalAMESMC(model, num_particles=64, num_stages=5, num_moves=1,
+                         seed=3, precondition=False)
+    res, sref = smc.sample(mesh=mesh), smc.sample()
+    return {
+        "hmc_local_chains": sh.positions.shape[0], "hmc_s": hmc_s,
+        "hmc_dx": (sh.full().positions - ref.positions).abs().max().item(),
+        "nuts_finite": bool(torch.isfinite(nu.positions).all()),
+        "nuts_mean_dx": (nu.positions.mean((0, 1)) - nu_ref.positions.mean(
+            (0, 1))).abs().max().item(),
+        "smc_dx": (res.full().particles - sref.particles).abs().max().item(),
+        "smc_evidence_dx": abs(float(res.log_evidence)
+                               - float(sref.log_evidence))}
+
+
+def sharded_rank(rank: int, backend: str, refs: dict) -> dict:
+    """One rank of phases 40-43: the north-star fits sharded over a
+    nodes mesh of the world (fixed budget against phase 39, to the stop,
+    the smoothed fit), then the samplers over a batch mesh."""
+    import tame_torch  # noqa: F401  (TF32 off)
+    from tame_torch.inference import cavi, smoothed
+    from tame_torch.parallel import comm as pcomm
+    from tame_torch.parallel import (
+        make_mesh,
+        shard_fit_inputs,
+        shard_smoothed_inputs,
+    )
+    from tame_torch.parallel.comm_analysis import count_iteration
+
+    world = pcomm.world_size()
+    mesh = make_mesh(nodes=world, device="cuda", backend=backend)
+    wrappers = kernel_wrappers()
+    Y, params, init = north_star_inputs()
+    warm = smoothed.warm_init_smoothed_state(Y, params)
+    warm = type(warm)(*(t.cpu() for t in warm))
+    Y = Y.cpu()   # a rank keeps only its rows on the card
+    torch.cuda.empty_cache()
+    out = {"rank": rank, "device": str(mesh.device)}
+    Y_s, init_s = shard_fit_inputs(mesh, Y, init)
+    t0 = time.perf_counter()
+    fit, out["budget_launches"] = counted(wrappers, lambda: cavi.fit_cavi(
+        Y_s, params, init_s, max_iter=BUDGET, tolerance=0.0, **SHARDED_FIT))
+    out["budget_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / BUDGET
+    full = fit.full()
+    out["budget_dx"] = (full.X_mean.cpu() - refs["X_mean"]).abs().max()\
+        .item()
+    out["budget_elbo_rel"] = max_rel(fit.elbo_history[:BUDGET],
+                                     refs["elbo"])
+    out["collectives_per_iteration"] = count_iteration(
+        mesh, 2000, 50, 4, num_blocks=16)
+    conv, out["stop_launches"] = counted(wrappers, lambda: cavi.fit_cavi(
+        Y_s, params, init_s, max_iter=200, **SHARDED_FIT))
+    out["stop"] = (conv.n_iter, conv.converged)
+    Ys_s, warm_s = shard_smoothed_inputs(mesh, Y, warm)
+    t0 = time.perf_counter()
+    sm, out["smoothed_launches"] = counted(
+        wrappers, lambda: smoothed.fit_cavi_smoothed(
+            Ys_s, params, warm_s, max_iter=SMOOTHED_ITERS, tolerance=0.0,
+            learning_rate=0.8))
+    out["smoothed_ms_per_iter"] = ((time.perf_counter() - t0) * 1e3
+                                   / SMOOTHED_ITERS)
+    out["smoothed_elbo_rel"] = max_rel(sm.elbo_history[:SMOOTHED_ITERS],
+                                       refs["smoothed_elbo"])
+    del Y, Y_s, Ys_s, fit, full, conv, sm
+    torch.cuda.empty_cache()
+    batch = make_mesh(batch=world, device="cuda", backend=backend)
+    out.update(sharded_samplers(batch))
+    return out
+
+
+def check_sharded_world(label: str, ranks: list, ref_stop: int) -> None:
+    """Phases 40-43's checks on every rank of one world."""
+    from tame_torch.parallel.comm_analysis import layout_bytes
+
+    stops = {r["stop"] for r in ranks}
+    for r in ranks:
+        tag = f"{label}, rank {r['rank']}"
+        require(r["budget_dx"] < SHARDED_DX
+                and r["budget_elbo_rel"] < SHARDED_ELBO_RTOL,
+                f"{tag}: the fixed-budget fit is off phase 39's: "
+                f"{r['budget_dx']}, {r['budget_elbo_rel']}")
+        c = r["budget_launches"]
+        require(c["spd_solve_inv"] == 16 * BUDGET
+                and c["logdet_spd"] == BUDGET and c["fused_fit"] == 0,
+                f"{tag}: not 16 K1 and 1 K2 launches per iteration: {c}")
+        require(r["smoothed_launches"]["fused_smoother"]
+                == 16 * SMOOTHED_ITERS, f"{tag}: the smoothed fit did not "
+                f"launch K4 once per block phase: {r['smoothed_launches']}")
+        require(r["smoothed_elbo_rel"] <= SMOOTHED_ELBO_RTOL,
+                f"{tag}: the smoothed ELBO is off: "
+                f"{r['smoothed_elbo_rel']}")
+        require(r["hmc_dx"] <= ATOL_HMC, f"{tag}: HMC {r['hmc_dx']}")
+        require(r["nuts_finite"] and r["nuts_mean_dx"] <= 0.5,
+                f"{tag}: NUTS {r['nuts_mean_dx']}")
+        require(r["smc_dx"] <= ATOL_SMC and r["smc_evidence_dx"] <= ATOL_SMC,
+                f"{tag}: SMC {r['smc_dx']}, {r['smc_evidence_dx']}")
+    require(len(stops) == 1 and next(iter(stops))[1],
+            f"{label}: the ranks stopped apart or did not converge: {stops}")
+    r0 = ranks[0]
+    coll = r0["collectives_per_iteration"]
+    want = layout_bytes(2000, 50, 4, len(ranks), 1, 16)
+    require(sum(v["bytes"] for v in coll.values()) == want,
+            f"{label}: the collectives of one iteration are not the "
+            f"layout's {want} bytes: {coll}")
+    PARALLEL[label] = {
+        "ranks": len(ranks), "devices": [r["device"] for r in ranks],
+        "budget_ms_per_iter": [r["budget_ms_per_iter"] for r in ranks],
+        "budget_dx": max(r["budget_dx"] for r in ranks),
+        "budget_elbo_rel": max(r["budget_elbo_rel"] for r in ranks),
+        "stop": r0["stop"][0], "one_rank_stop": ref_stop,
+        "smoothed_ms_per_iter": [r["smoothed_ms_per_iter"] for r in ranks],
+        "smoothed_elbo_rel": max(r["smoothed_elbo_rel"] for r in ranks),
+        "collectives_per_iteration": coll,
+        "collective_bytes_per_iteration": sum(v["bytes"]
+                                              for v in coll.values()),
+        "hmc_dx": max(r["hmc_dx"] for r in ranks),
+        "hmc_s": [r["hmc_s"] for r in ranks],
+        "nuts_mean_dx": max(r["nuts_mean_dx"] for r in ranks),
+        "smc_dx": max(r["smc_dx"] for r in ranks),
+        "smc_evidence_dx": max(r["smc_evidence_dx"] for r in ranks)}
+    print(f"{label}: {json.dumps(PARALLEL[label])} on {CARD}", flush=True)
+
+
+def rank_launches(ranks: list) -> dict:
+    """The launches of a spawned world's paths, summed over its ranks."""
+    total = {}
+    for r in ranks:
+        for key in ("budget_launches", "stop_launches",
+                    "smoothed_launches"):
+            for k, v in r[key].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_one_rank(Y, params, init) -> dict:
+    """Phase 39: the north-star block fit on a one-rank NCCL mesh beside
+    the plain fit: the same stop, the ELBO history within 1e-6."""
+    from tame_torch.inference import cavi
+    from tame_torch.parallel import make_mesh, shard_fit_inputs
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = cavi.fit_cavi(Y, params, on_card(init), max_iter=200,
+                          **SHARDED_FIT)
+    plain_s = time.perf_counter() - t0
+    mesh = make_mesh()
+    require(mesh.backend == "nccl" and mesh.size == 1,
+            f"not a one-rank NCCL mesh: {mesh}")
+    Y_s, init_s = shard_fit_inputs(mesh, Y, init)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cavi.fit_cavi(Y_s, params, init_s, max_iter=200, **SHARDED_FIT)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    n = plain.n_iter
+    rel = max_rel(out.elbo_history[:n], plain.elbo_history[:n])
+    dx = (out.full().X_mean - plain.X_mean).abs().max().item()
+    PARALLEL["one NCCL rank"] = dict(
+        stop=out.n_iter, plain_stop=n, elbo_rel=rel, max_abs_dx=dx,
+        ms_per_iter=sharded_s * 1e3 / out.n_iter,
+        plain_ms_per_iter=plain_s * 1e3 / n,
+        collectives=mesh.comm.stats())
+    print(f"n=2000 T=50 r=4 on a one-rank NCCL mesh: "
+          f"{json.dumps(PARALLEL['one NCCL rank'])} on {CARD}", flush=True)
+    require(out.n_iter == n and out.converged == plain.converged,
+            f"the one-rank fit stopped at {out.n_iter}, the plain at {n}")
+    require(rel <= ONE_RANK_ELBO_RTOL, f"one-rank ELBO off by {rel}")
+    return {"n_iter": n, "mesh": mesh, "Y_s": Y_s, "init_s": init_s}
+
+
+def phase_references(one: dict, Y, params, init) -> dict:
+    """The fixed-budget fit on phase 39's mesh and the one-rank smoothed
+    fit, for the sharded worlds to match; and the plain and one-rank fits
+    timed in turns (plain, one rank, one rank, plain) at a fixed budget."""
+    from tame_torch.inference import cavi, smoothed
+
+    turns = {"plain": [], "one rank": []}
+    for label in ("plain", "one rank", "one rank", "plain"):
+        args = ((Y, params, on_card(init)) if label == "plain"
+                else (one["Y_s"], params, one["init_s"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cavi.fit_cavi(*args, max_iter=TURN_ITERS, tolerance=0.0,
+                      **SHARDED_FIT)
+        torch.cuda.synchronize()
+        turns[label].append((time.perf_counter() - t0) * 1e3 / TURN_ITERS)
+    PARALLEL["one NCCL rank"]["turns_ms_per_iter"] = turns
+    print(f"n=2000 ms/iteration in turns ({TURN_ITERS} iterations each): "
+          f"{turns} on {CARD}", flush=True)
+    fit = cavi.fit_cavi(one["Y_s"], params, one["init_s"], max_iter=BUDGET,
+                        tolerance=0.0, **SHARDED_FIT)
+    warm = smoothed.warm_init_smoothed_state(Y, params)
+    sm = smoothed.fit_cavi_smoothed(Y, params, warm,
+                                    max_iter=SMOOTHED_ITERS, tolerance=0.0,
+                                    learning_rate=0.8)
+    return {"X_mean": fit.full().X_mean.cpu(),
+            "elbo": fit.elbo_history[:BUDGET],
+            "smoothed_elbo": sm.elbo_history[:SMOOTHED_ITERS]}
+
+
+def run_script(module: str, *argv: str) -> str:
+    """``python -m <module> --device cuda <argv>`` from the checkout."""
+    r = subprocess.run([sys.executable, "-m", module, "--device", "cuda",
+                        *argv], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    require(r.returncode == 0, f"{module} failed:\n{r.stdout}\n{r.stderr}")
+    return r.stdout.strip().splitlines()[-1]
+
+
+def parallel_paths(drive, paths: list, nccl_leg: bool = False) -> None:
+    """Phases 39-44: ``tame_torch.parallel`` on the card.  ``nccl_leg``
+    (``--nccl-leg``, on a machine with 2 cards or more) runs phase 39, its
+    references and phase 41 alone, then ``multihost_proof`` and
+    ``scaling_eval`` over NCCL with one rank per card."""
+    from tame_torch.parallel import comm as pcomm
+    from tame_torch.parallel.distributed import spawn_world
+
+    Y, params, init = north_star_inputs()
+    one, c = drive("n=2000 one-rank NCCL mesh (and the plain fit)",
+                   timed_phase, "n=2000 one-rank NCCL mesh", phase_one_rank,
+                   Y, params, init)
+    n = one["n_iter"]
+    require(c["spd_solve_inv"] == 2 * 16 * n and c["logdet_spd"] == 2 * n
+            and c["fused_fit"] == 0, f"the plain and one-rank fits did not "
+            f"launch 16 K1 and 1 K2 per iteration each, K3 never: {c}")
+    refs, _ = drive("references for the sharded worlds", timed_phase,
+                    "references", phase_references, one, Y, params, init)
+    del one, Y
+    torch.cuda.empty_cache()
+    worlds = [] if nccl_leg else [("two gloo ranks sharing the card", 2,
+                                   "gloo")]
+    cards = torch.cuda.device_count()
+    procs = 4 if cards >= 4 else 2
+    if cards >= 2:
+        worlds.append(("NCCL, one rank per card", procs, "nccl"))
+    else:
+        require(not nccl_leg, "--nccl-leg needs 2 cards or more")
+        print(f"NCCL with one rank per card: not run, this machine has "
+              f"{cards} card(s)", flush=True)
+    for label, nprocs, backend in worlds:
+        t0 = time.perf_counter()
+        ranks = spawn_world(sharded_rank, nprocs, (backend, refs),
+                            backend=backend, timeout_s=900.0)
+        print(f"phase {label}: {time.perf_counter() - t0:.2f} s wall on "
+              f"{CARD}", flush=True)
+        check_sharded_world(label, ranks, n)
+        counts = rank_launches(ranks)
+        counts.setdefault("masked_contract", 0)
+        counts.setdefault("eta_contract", 0)
+        print(f"launches, {label} (all ranks): {counts}", flush=True)
+        paths.append(counts)
+    scripts = [("multihost_probe", ("--backend", "gloo")),
+               ("multihost_proof", ("--backend", "gloo"))]
+    if nccl_leg:
+        scripts = [("multihost_proof", ("--backend", "nccl", "--procs",
+                                        str(procs))),
+                   ("scaling_eval", ("--backend", "nccl", "--procs",
+                                     str(procs)))]
+    for name, argv in scripts:
+        module = f"tame_torch.scripts.{name}"
+        line, _ = drive(module, timed_phase, module, run_script, module,
+                        *argv)
+        PARALLEL[name] = json.loads(line)
+        print(f"{module}: {line}", flush=True)
+    pcomm.destroy()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--nccl-leg", action="store_true",
+        help="on a machine with 2 cards or more: build, then run phase 39 "
+             "and the NCCL world of one rank per card (phase 41) alone, "
+             "with multihost_proof and scaling_eval over NCCL")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() "
               "is False", file=sys.stderr)
@@ -2441,14 +2829,6 @@ def main() -> int:
     t0 = time.perf_counter()
     _ext.load()
     print(f"build: {time.perf_counter() - t0:.1f} s (build/tame_torch)")
-
-    report = {name: {} for name in KERNELS}
-    phase_kernels(report)
-    phase_fused_fit(report)
-    phase_smoother_kernel(report)
-    phase_contract_kernels(report)
-    phase_eta_kernel(report)
-
     wrappers = {"spd_solve_inv": ch.spd_solve_inv_kernel,
                 "logdet_spd": ch.logdet_spd_kernel,
                 "fused_fit": ff.fused_fit_kernel,
@@ -2467,6 +2847,18 @@ def main() -> int:
         print(f"launches, {label}: {counts}")
         paths.append(counts)
         return out, counts
+
+    if args.nccl_leg:
+        parallel_paths(drive, paths, nccl_leg=True)
+        print(json.dumps({"parallel": PARALLEL}))
+        return 0
+
+    report = {name: {} for name in KERNELS}
+    phase_kernels(report)
+    phase_fused_fit(report)
+    phase_smoother_kernel(report)
+    phase_contract_kernels(report)
+    phase_eta_kernel(report)
 
     _, demo = drive("demo", phase_demo)
     _, good = drive("n=2000 Good SMF", phase_real_size)
@@ -2632,6 +3024,7 @@ def main() -> int:
 
     sampler_paths(drive)
     host_layer_paths(drive)
+    parallel_paths(drive, paths)
 
     import shutil
 

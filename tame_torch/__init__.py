@@ -2,7 +2,8 @@
 
 The port of :mod:`tame` (JAX on a TPU) to PyTorch on an NVIDIA H100.  Its
 layout mirrors ``tame/`` (``config``, ``models``, ``ops``, ``inference``,
-``io``, ``utils``, ``experiments``, ``visualization``, the command line
+``io``, ``utils``, ``experiments``, ``visualization``, ``parallel`` (fits
+and samplers sharded over ``torch.distributed``), the command line
 ``cli`` with ``python -m tame_torch``, ``demo`` and the setup check
 ``quick_test``, and the scripts of the repo's root and ``scripts/`` under
 ``scripts``); it imports ``torch`` and numpy and never JAX.  Importing the
@@ -31,7 +32,11 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from tame_torch.config import InferenceConfig, ModelConfig  # noqa: E402
+from tame_torch.config import (  # noqa: E402
+    InferenceConfig,
+    MeshConfig,
+    ModelConfig,
+)
 from tame_torch.inference import (  # noqa: E402
     EMResult,
     TemporalAMECaviVI,
@@ -55,6 +60,7 @@ __version__ = "0.1.0"
 __all__ = [
     "ModelConfig",
     "InferenceConfig",
+    "MeshConfig",
     "BaseAMEModel",
     "StaticAMEModel",
     "TemporalAMEModel",

@@ -83,3 +83,18 @@ class InferenceConfig:
 
 FACTORIZATION_TO_STRUCTURE = {"good": "full", "bad": "block"}
 STRUCTURE_TO_FACTORIZATION = {v: k for k, v in FACTORIZATION_TO_STRUCTURE.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Layout of a mesh of ranks (:func:`tame_torch.parallel.make_mesh`).
+
+    Axes:
+      * ``nodes``  — shards the node axis n (rows of the dyad weights);
+      * ``time``   — shards the AR(1) time axis T;
+      * ``batch``  — splits HMC/NUTS chains and SMC particles.
+    """
+
+    nodes: int = 1
+    time: int = 1
+    batch: int = 1

@@ -120,7 +120,7 @@ def _panel_t(*cols: torch.Tensor) -> torch.Tensor:
     return torch.cat(cols, -1).transpose(0, 1)
 
 
-def _predictor_moments(state, r: int):
+def _predictor_moments(state, r: int, senders=None):
     """Plug-in predictor ``m[t, i, j] = a_i + b_j + U_i . V_j`` and its
     posterior variance under the mean-field factors, both (T, n, n): the
     exact bilinear formula including ``tr(C_i Cr_j)``,
@@ -129,20 +129,26 @@ def _predictor_moments(state, r: int):
               + U_i' Cr_j U_i + tr(C_i Cr_j),
 
     as one (2 + 2r + 3r^2)-column ``bmm`` per t (and one of 2 + r columns
-    for ``m``)."""
+    for ``m``).  ``senders`` (default ``state``) holds the factors of the
+    rows i, (T, m, n) out: a rank's rows under a mesh."""
     mu, S = state.X_mean, state.X_cov
     n, T, _ = mu.shape
-    a, b, U, V = dyad_ops.split_state(mu, r)
+    src = state if senders is None else senders
+    mi, Si = src.X_mean, src.X_cov
+    m_rows = mi.shape[0]
+    a, _, U, _ = dyad_ops.split_state(mi, r)
+    _, b, _, V = dyad_ops.split_state(mu, r)
     one = mu.new_ones(n, T, 1)
-    m = torch.bmm(_panel_t(a[..., None], one, U),
+    one_i = mi.new_ones(m_rows, T, 1)
+    m = torch.bmm(_panel_t(a[..., None], one_i, U),
                   _panel_t(one, b[..., None], V).transpose(1, 2))
     rr = r * r
-    C = S[..., 2:2 + r, 2:2 + r]
+    C = Si[..., 2:2 + r, 2:2 + r]
     Cr = S[..., 2 + r:, 2 + r:]
-    left = _panel_t(S[..., 0, 0, None], one, 2.0 * S[..., 0, 2:2 + r],
-                    C.reshape(n, T, rr), U,
-                    cavi._outer(U, U).reshape(n, T, rr),
-                    C.reshape(n, T, rr))
+    left = _panel_t(Si[..., 0, 0, None], one_i, 2.0 * Si[..., 0, 2:2 + r],
+                    C.reshape(m_rows, T, rr), U,
+                    cavi._outer(U, U).reshape(m_rows, T, rr),
+                    C.reshape(m_rows, T, rr))
     right = _panel_t(one, S[..., 1, 1, None], V,
                      cavi._outer(V, V).reshape(n, T, rr),
                      2.0 * S[..., 1, 2 + r:], Cr.reshape(n, T, rr),
@@ -158,7 +164,8 @@ def _contract(L: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_obs_terms(mu: torch.Tensor, r: int, w: torch.Tensor,
-                       s: torch.Tensor, cov: Optional[torch.Tensor] = None):
+                       s: torch.Tensor, cov: Optional[torch.Tensor] = None,
+                       rows=slice(None), reduce=None):
     """Observation precision (n, T, d, d) and natural parameter (n, T, d)
     of a quadratic pseudo-likelihood over directed dyads: each dyad
     contributes ``s_ij m_ij - (w_ij / 2) E[m_ij^2]``, with ``w`` and ``s``
@@ -176,7 +183,12 @@ def weighted_obs_terms(mu: torch.Tensor, r: int, w: torch.Tensor,
     expected likelihood through the partner covariances; without them the
     update can be a descent direction on heavy-count data.  Prior terms
     are the caller's.  The blocks are written into a preallocated P by
-    slicing, as the JAX function's ``.at[].set``."""
+    slicing, as the JAX function's ``.at[].set``.
+
+    Under a mesh ``w`` and ``s`` hold only the sender rows ``mu[rows]``
+    (T, m, n): the receiver-side contractions then sum over this rank's
+    senders only, and ``reduce`` (an all-reduce over the ``nodes`` ranks)
+    completes them before the rows' own are taken."""
     n, T, d = mu.shape
     a, b, U, V = dyad_ops.split_state(mu, r)
     rr = r * r
@@ -192,20 +204,27 @@ def weighted_obs_terms(mu: torch.Tensor, r: int, w: torch.Tensor,
         Zs = torch.cat([one, V, VV], -1)
         Zr = torch.cat([one, U, UU], -1)
     Cs = _contract(w, Zs)
-    Cr = _contract(w.transpose(1, 2), Zr)
+    Cr = _contract(w.transpose(1, 2), Zr[rows])
+    if reduce is not None:
+        Cr = reduce(Cr)
+    Cr = Cr[rows]
 
-    P = mu.new_zeros(n, T, d, d)
+    m = Cs.shape[0]
+    P = mu.new_zeros(m, T, d, d)
     P[..., 0, 0] = Cs[..., 0]
     P[..., 1, 1] = Cr[..., 0]
     P[..., 0, 2:2 + r] = P[..., 2:2 + r, 0] = Cs[..., 1:1 + r]
     P[..., 1, 2 + r:] = P[..., 2 + r:, 1] = Cr[..., 1:1 + r]
-    P[..., 2:2 + r, 2:2 + r] = Cs[..., 1 + r:1 + r + rr].reshape(n, T, r, r)
-    P[..., 2 + r:, 2 + r:] = Cr[..., 1 + r:1 + r + rr].reshape(n, T, r, r)
+    P[..., 2:2 + r, 2:2 + r] = Cs[..., 1 + r:1 + r + rr].reshape(m, T, r, r)
+    P[..., 2 + r:, 2 + r:] = Cr[..., 1 + r:1 + r + rr].reshape(m, T, r, r)
 
     S_ = s - w * b.T[:, None, :]        # s_ij - w_ij b_j
-    W_ = s - w * a.T[:, :, None]        # s_ij - w_ij a_i
+    W_ = s - w * a[rows].T[:, :, None]  # s_ij - w_ij a_i
     Es = _contract(S_, torch.cat([one, V], -1))
-    Er = _contract(W_.transpose(1, 2), torch.cat([one, U], -1))
+    Er = _contract(W_.transpose(1, 2), torch.cat([one, U], -1)[rows])
+    if reduce is not None:
+        Er = reduce(Er)
+    Er = Er[rows]
     eta_U, eta_V = Es[..., 1:], Er[..., 1:]
     if cov is not None:
         eta_U = eta_U - Cs[..., 1 + r + rr:]
@@ -269,7 +288,16 @@ def fit_cavi_bernoulli(Y: torch.Tensor, params: AMEParams,
     adjacency, is read); ``mask``: optional (n, n, T) observation gate
     (hidden dyads are never read).  ``carry_elbo``/``carry_patience`` seed
     the stopping rule from a previous segment's ``last_elbo``/``pat_count``,
-    so a fit run in segments stops where the uninterrupted one does."""
+    so a fit run in segments stops where the uninterrupted one does.
+    Inputs from :func:`tame_torch.parallel.shard_fit_inputs` run the fit
+    sharded over the mesh (:mod:`tame_torch.parallel.sharded_family`)."""
+    if cavi._sharded(Y, init):
+        from tame_torch.parallel.sharded_family import fit_bernoulli_sharded
+
+        return fit_bernoulli_sharded(
+            Y, params, init, max_iter=max_iter, learning_rate=learning_rate,
+            tolerance=tolerance, patience=patience, carry_elbo=carry_elbo,
+            carry_patience=carry_patience, mask=mask)
     fi = family_inputs(Y, mask)
     params = params.to(Y.device, Y.dtype)
     pri = cavi.precompute_priors(params)

@@ -585,16 +585,29 @@ def _elbo_from_quad(quad_sum: torch.Tensor, params: AMEParams,
     n, T, d = state.X_mean.shape
     n_dyads = (n * (n - 1) // 2 * T if mask_stats is None
                else mask_stats[0])
-    log_lik = -0.5 * (quad_sum + n_dyads * (pri.logdet_R + 2.0 * _LOG2PI))
+    wsum = None
     if structure in ("full", "block"):
         tr_cov = torch.diagonal(state.X_cov, dim1=-2, dim2=-1).sum(-1)
         # sum_{i<j observed} (tr S_i + tr S_j) = sum_i cnt_i tr S_i
         wsum = ((n - 1) * torch.sum(tr_cov) if mask_stats is None
                 else torch.sum(mask_stats[1] * tr_cov))
+    prior0, priort = state_prior_terms(params, pri, state)
+    return elbo_from_terms(quad_sum, n_dyads, wsum, prior0, priort,
+                           gaussian_entropy(state), params, pri, d)
+
+
+def elbo_from_terms(quad_sum, n_dyads, wsum, prior0, priort, entropy,
+                    params: AMEParams, pri: PriorMatrices,
+                    d: int) -> torch.Tensor:
+    """The ELBO from its sums: the likelihood's quadratic form over
+    ``n_dyads`` dyad-times, the structured trace correction's weighted
+    covariance trace ``wsum`` (None for the naive policy), the prior terms
+    and the entropy (a sharded fit all-reduces these first)."""
+    log_lik = -0.5 * (quad_sum + n_dyads * (pri.logdet_R + 2.0 * _LOG2PI))
+    if wsum is not None:
         trR = params.R_inv[0, 0] + params.R_inv[1, 1]
         log_lik = log_lik - 0.5 * (0.1 * trR / d * wsum)
-    prior0, priort = state_prior_terms(params, pri, state)
-    return log_lik + prior0 + priort + gaussian_entropy(state)
+    return log_lik + prior0 + priort + entropy
 
 
 # ---------------------------------------------------------------------------
@@ -631,14 +644,28 @@ def _block_obs_terms(X_mean: torch.Tensor, obs: ObsConstants,
     ones (O(n T r^2) besides the two ``W @ Z`` contractions), or masked
     partner sums through ``contract`` (:func:`make_block_mask_contract`),
     one mask pass for the precision and one for the corrected offsets."""
+    sl = slice(blk * bs, (blk + 1) * bs)
+    return rows_obs_terms(
+        X_mean, sl, obs.W0[sl], obs.W1[sl], obs.eta_a[sl], obs.eta_b[sl],
+        R_inv, corrected,
+        None if contract is None else lambda Z: contract(blk, Z))
+
+
+def rows_obs_terms(X_mean: torch.Tensor, sl: slice, W0: torch.Tensor,
+                   W1: torch.Tensor, eta_a: torch.Tensor, eta_b: torch.Tensor,
+                   R_inv: torch.Tensor, corrected: bool, contract=None):
+    """Observation precision (m, T, d, d) and natural parameter (m, T, d)
+    of the m nodes ``X_mean[sl]``, given their rows ``W0``/``W1`` (m, n,
+    T) of the dyad weights and the weights' row sums: :func:`_block_obs_terms`
+    for any slice of rows (a rank's share of a block under a mesh), the
+    masked partner sums through the one-argument ``contract``."""
     n, T, d = X_mean.shape
     r = (d - 2) // 2
-    sl = slice(blk * bs, (blk + 1) * bs)
     p, q = R_inv[0, 0], R_inv[0, 1]
     a_all, b_all, U, V = dyad_ops.split_state(X_mean, r)
     Ub, Vb = U[sl], V[sl]
     if contract is not None:
-        P = _masked_P_from_C(contract(blk, _masked_panel(U, V)), R_inv, r)
+        P = _masked_P_from_C(contract(_masked_panel(U, V)), R_inv, r)
     else:
         sU = U.sum(0)[None] - Ub
         sV = V.sum(0)[None] - Vb
@@ -647,14 +674,13 @@ def _block_obs_terms(X_mean: torch.Tensor, obs: ObsConstants,
         GVU = _gram(V, U)[None] - _outer(Vb, Ub)
         P = _P_from_partner_stats(float(n - 1), sU, sV, GUU, GVV, GVU, R_inv)
 
-    etaU = _eta_contract(obs.W0[sl], V)
-    etaV = _eta_contract(obs.W1[sl], U)
-    eta_a, eta_b = obs.eta_a[sl], obs.eta_b[sl]
+    etaU = _eta_contract(W0, V)
+    etaV = _eta_contract(W1, U)
     if corrected:
         cc = p * b_all + q * a_all
         ddc = q * b_all + p * a_all
         if contract is not None:
-            C = contract(blk, _offset_panel(cc, ddc, U, V))
+            C = contract(_offset_panel(cc, ddc, U, V))
             eta_a = eta_a - C[..., 0]
             eta_b = eta_b - C[..., 1]
             etaU = etaU - C[..., 2:2 + r]
@@ -1004,6 +1030,19 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
                      last_elbo=float(rule.prev), pat_count=rule.pat)
 
 
+def _sharded(Y, init) -> bool:
+    """Whether a fit's inputs are sharded over a mesh (both, or neither:
+    a mix raises ``TypeError``)."""
+    from tame_torch.parallel.mesh import Sharded
+
+    sharded = isinstance(Y, Sharded), isinstance(init, Sharded)
+    if sharded[0] != sharded[1]:
+        raise TypeError("Y and the initial state must both be sharded "
+                        "(tame_torch.parallel.shard_fit_inputs) or both "
+                        "be tensors")
+    return sharded[0]
+
+
 def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
              structure: str = "full", update_mode: str = "jacobi",
              max_iter: int = 100, learning_rate=1.0, tolerance=1e-4,
@@ -1049,7 +1088,23 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     (:func:`cavi_step_block`) or ``"seq"`` (:func:`cavi_step_seq`, the
     reference's node-by-node order, for small n; never K3, and not with
     ``corrected``, ``mixed_precision`` or a mask).
+
+    ``Y`` and ``init`` from :func:`tame_torch.parallel.shard_fit_inputs`
+    run the fit sharded over the mesh's ranks
+    (:func:`tame_torch.parallel.sharded_cavi.fit_cavi_sharded`; never
+    K3) and return a :class:`~tame_torch.parallel.mesh.Sharded` result.
     """
+    if _sharded(Y, init):
+        from tame_torch.parallel.sharded_cavi import fit_cavi_sharded
+
+        return fit_cavi_sharded(
+            Y, params, init, structure=structure, update_mode=update_mode,
+            max_iter=max_iter, learning_rate=learning_rate,
+            tolerance=tolerance, patience=patience, num_blocks=num_blocks,
+            corrected=corrected, elbo_every=elbo_every,
+            mixed_precision=mixed_precision, diag_mode=diag_mode,
+            fused=fused, carry_elbo=carry_elbo,
+            carry_patience=carry_patience, mask=mask)
     if diag_mode not in ("exact", "stats"):
         raise ValueError(f"unknown diag_mode: {diag_mode!r}")
     if mask is not None:

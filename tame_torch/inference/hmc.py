@@ -101,26 +101,33 @@ def _kinetic(momentum: torch.Tensor, inv_mass: torch.Tensor) -> torch.Tensor:
     return 0.5 * _dot(momentum, inv_mass * momentum)
 
 
-def hmc_draws(generator: torch.Generator, position: torch.Tensor) -> HMCDraws:
-    """The draws of one transition of the chains in ``position``."""
-    return HMCDraws(
-        noise=torch.randn(position.shape, generator=generator,
+def hmc_draws(generator: torch.Generator, position: torch.Tensor,
+              shard=None) -> HMCDraws:
+    """The draws of one transition of the chains in ``position``; under a
+    ``shard`` (:class:`tame_torch.parallel.mesh.ChainShard`) those of the
+    whole batch, sliced to this rank's chains."""
+    C = position.shape[0] if shard is None else shard.total
+    draws = HMCDraws(
+        noise=torch.randn((C,) + position.shape[1:], generator=generator,
                           device=position.device, dtype=position.dtype),
-        uniform=torch.rand(position.shape[0], generator=generator,
+        uniform=torch.rand(C, generator=generator,
                            device=position.device, dtype=position.dtype))
+    return draws if shard is None else HMCDraws(
+        *(x[shard.lo:shard.hi] for x in draws))
 
 
 @torch.no_grad()
 def hmc_kernel(logdensity_fn: Callable, state: HMCState,
                generator: Optional[torch.Generator],
                step_size: torch.Tensor, inv_mass: torch.Tensor,
-               num_leapfrog: int, *, draws: Optional[HMCDraws] = None
-               ) -> Tuple[HMCState, torch.Tensor]:
+               num_leapfrog: int, *, draws: Optional[HMCDraws] = None,
+               shard=None) -> Tuple[HMCState, torch.Tensor]:
     """One HMC transition of every chain; returns (new_state,
     accept_probability (chains,)).  ``draws`` (default: drawn from
-    ``generator``) are the transition's randomness."""
+    ``generator``, as :func:`hmc_draws` under ``shard``) are the
+    transition's randomness."""
     if draws is None:
-        draws = hmc_draws(generator, state.position)
+        draws = hmc_draws(generator, state.position, shard)
     # momentum ~ N(0, M) with M = 1 / inv_mass
     momentum = draws.noise / torch.sqrt(inv_mass)
     energy0 = -state.logdensity + _kinetic(momentum, inv_mass)
@@ -180,7 +187,7 @@ def run_hmc(logdensity_fn: Callable, init_position: torch.Tensor,
             initial_step_size: float = 0.01,
             inv_mass: Optional[torch.Tensor] = None,
             target_accept: float = 0.8, thin: int = 1,
-            logdensity_args: tuple = ()) -> HMCSamples:
+            logdensity_args: tuple = (), shard=None) -> HMCSamples:
     """Run HMC chains: dual-averaging warmup, then sampling.
 
     ``init_position`` (chains, ...) holds one start per chain and
@@ -190,7 +197,10 @@ def run_hmc(logdensity_fn: Callable, init_position: torch.Tensor,
     identity by default.  ``thin`` transitions are made per kept draw (the
     accept statistic is their mean).  ``logdensity_args``: data operands
     forwarded as ``logdensity_fn(x, *logdensity_args)``.  Draws come from
-    ``generator``, on the positions' device."""
+    ``generator``, on the positions' device.  ``shard``
+    (:class:`tame_torch.parallel.mesh.ChainShard`): ``init_position`` holds
+    this rank's chains of a larger batch, and each transition draws the
+    whole batch's numbers and keeps this rank's."""
     logdensity_fn = with_args(logdensity_fn, logdensity_args)
     if inv_mass is None:
         inv_mass = torch.ones_like(init_position[0])
@@ -202,7 +212,7 @@ def run_hmc(logdensity_fn: Callable, init_position: torch.Tensor,
     for _ in range(num_warmup):
         state, accept_prob = hmc_kernel(
             logdensity_fn, state, generator, torch.exp(da.log_eps),
-            inv_mass, num_leapfrog)
+            inv_mass, num_leapfrog, shard=shard)
         da = _da_update(da, accept_prob, target=target_accept)
     step_size = torch.exp(da.log_eps_avg)
 
@@ -216,7 +226,8 @@ def run_hmc(logdensity_fn: Callable, init_position: torch.Tensor,
         aps = init_position.new_zeros(C)
         for _ in range(thin):
             state, ap = hmc_kernel(logdensity_fn, state, generator,
-                                   step_size, inv_mass, num_leapfrog)
+                                   step_size, inv_mass, num_leapfrog,
+                                   shard=shard)
             aps = aps + ap
         positions[:, s] = state.position
         accept[:, s] = aps / thin
@@ -291,12 +302,16 @@ class _Sampler:
         self.last_diagnostics = None
 
     def _starts(self, mesh):
-        """(generator, chain starts (chains, n, T, d), inverse mass): the
-        CAVI center (or zeros) plus 0.01 N(0, 1) per chain, drawn from a
-        generator on the data's device seeded ``seed``."""
+        """(generator, chain starts (chains, n, T, d), inverse mass, chain
+        shard): the CAVI center (or zeros) plus 0.01 N(0, 1) per chain,
+        drawn from a generator on the data's device seeded ``seed``.  Under
+        a ``mesh`` (:func:`tame_torch.parallel.make_mesh` with a ``batch``
+        axis) every rank draws all the starts and keeps its chains."""
+        shard = None
         if mesh is not None:
-            raise NotImplementedError(
-                "sample(mesh=...) needs tame_torch.parallel, not ported yet")
+            from tame_torch.parallel.mesh import chain_shard
+
+            shard = chain_shard(mesh, self.num_chains)
         if self.precondition:
             center, inv_mass = precondition_from_cavi(
                 self.Y, self.params, seed=self.seed, mask=self.mask)
@@ -308,9 +323,13 @@ class _Sampler:
         inits = center[None] + 0.01 * torch.randn(
             (self.num_chains,) + center.shape, generator=gen,
             device=center.device, dtype=center.dtype)
-        return gen, inits, inv_mass
+        if shard is not None:
+            inits = inits[shard.lo:shard.hi]
+        return gen, inits, inv_mass, shard
 
-    def _keep(self, out: HMCSamples) -> HMCSamples:
+    def _keep(self, out: HMCSamples, shard):
+        if shard is not None:
+            out = shard.wrap(out, HMCSamples._fields)
         # Diagnostics are computed lazily (diagnostics()): the R-hat/ESS
         # pass copies the whole sample stack to the host.
         self._last_sample = out
@@ -341,13 +360,17 @@ class TemporalAMEHMC(_Sampler):
     def sample(self, num_warmup: int = 200, num_samples: int = 200,
                thin: int = 1, mesh=None) -> HMCSamples:
         """Run the chains; returns samples with leading axes (chains,
-        num_samples).  ``mesh`` (chains sharded over devices) raises
-        ``NotImplementedError``: ``tame_torch.parallel`` is not ported."""
-        gen, inits, inv_mass = self._starts(mesh)
+        num_samples).  ``mesh`` (a :func:`tame_torch.parallel.make_mesh`
+        mesh with a ``batch`` axis that divides ``num_chains``) runs each
+        rank's chains on its device, with the numbers they draw unsharded,
+        and returns a :class:`~tame_torch.parallel.mesh.Sharded` holding
+        them (``full()`` gathers every chain; :meth:`diagnostics` reads
+        this rank's).  Any other ``mesh`` raises ``TypeError``."""
+        gen, inits, inv_mass, shard = self._starts(mesh)
         return self._keep(run_hmc(
             self._logdensity, inits, gen, num_warmup=num_warmup,
             num_samples=num_samples, num_leapfrog=self.num_leapfrog,
-            inv_mass=inv_mass, thin=thin))
+            inv_mass=inv_mass, thin=thin, shard=shard), shard)
 
 
 def _lazy_diagnostics(sampler):

@@ -87,11 +87,15 @@ class NUTSDraws(NamedTuple):
 
 
 def nuts_draws(generator: torch.Generator, position: torch.Tensor,
-               max_depth: int) -> NUTSDraws:
-    C, dev, dt = position.shape[0], position.device, position.dtype
-    return NUTSDraws(
-        noise=torch.randn(position.shape, generator=generator, device=dev,
-                          dtype=dt),
+               max_depth: int, shard=None) -> NUTSDraws:
+    """One transition's draws for the chains in ``position``; under a
+    ``shard`` (:class:`tame_torch.parallel.mesh.ChainShard`) those of the
+    whole batch, sliced to this rank's chains."""
+    C = position.shape[0] if shard is None else shard.total
+    dev, dt = position.device, position.dtype
+    draws = NUTSDraws(
+        noise=torch.randn((C,) + position.shape[1:], generator=generator,
+                          device=dev, dtype=dt),
         direction=torch.where(
             torch.rand(C, max_depth, generator=generator, device=dev) < 0.5,
             1.0, -1.0).to(dt),
@@ -99,6 +103,8 @@ def nuts_draws(generator: torch.Generator, position: torch.Tensor,
                         dtype=dt),
         leaf=torch.rand(C, 2 ** max_depth - 1, generator=generator,
                         device=dev, dtype=dt))
+    return draws if shard is None else NUTSDraws(
+        *(x[shard.lo:shard.hi] for x in draws))
 
 
 def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -231,15 +237,17 @@ def nuts_transition(logdensity_fn: Callable, position: torch.Tensor,
 def nuts_kernel(logdensity_fn: Callable, position: torch.Tensor,
                 generator: Optional[torch.Generator],
                 step_size: torch.Tensor, inv_mass: torch.Tensor,
-                max_depth: int = 8, *, draws: Optional[NUTSDraws] = None):
+                max_depth: int = 8, *, draws: Optional[NUTSDraws] = None,
+                shard=None):
     """One NUTS transition of the chains in ``position`` (chains, ...):
     draws the transition's randomness from ``generator`` (unless
-    ``draws`` are given) and runs :func:`nuts_transition`.  Returns
+    ``draws`` are given; as :func:`nuts_draws` under ``shard``) and runs
+    :func:`nuts_transition`.  Returns
     (new_position, new_logp, stats).  ``nuts_kernel.syncs``,
     ``nuts_kernel.steps`` and ``nuts_kernel.transitions`` count the host
     readbacks, the batched leapfrog steps and the transitions made."""
     if draws is None:
-        draws = nuts_draws(generator, position, max_depth)
+        draws = nuts_draws(generator, position, max_depth, shard)
     out = nuts_transition(logdensity_fn, position, draws, step_size,
                           inv_mass, max_depth)
     nuts_kernel.syncs += out[2]["syncs"]
@@ -260,7 +268,7 @@ def run_nuts(logdensity_fn: Callable, init_position: torch.Tensor,
              initial_step_size: float = 0.01,
              inv_mass: Optional[torch.Tensor] = None,
              target_accept: float = 0.8,
-             logdensity_args: tuple = ()) -> HMCSamples:
+             logdensity_args: tuple = (), shard=None) -> HMCSamples:
     """Run NUTS chains: dual-averaging warmup, then sampling.
 
     ``init_position`` (chains, ...), ``logdensity_fn`` (chains, ...) ->
@@ -268,7 +276,8 @@ def run_nuts(logdensity_fn: Callable, init_position: torch.Tensor,
     :func:`tame_torch.inference.hmc.run_hmc`; every chain adapts its own
     step size.  Returns :class:`~tame_torch.inference.hmc.HMCSamples`
     (positions (chains, num_samples, ...), accept statistics, final step
-    sizes (chains,), log densities)."""
+    sizes (chains,), log densities).  ``shard`` as in
+    :func:`~tame_torch.inference.hmc.run_hmc`."""
     logdensity_fn = with_args(logdensity_fn, logdensity_args)
     if inv_mass is None:
         inv_mass = torch.ones_like(init_position[0])
@@ -277,7 +286,7 @@ def run_nuts(logdensity_fn: Callable, init_position: torch.Tensor,
     for _ in range(num_warmup):
         pos, _, stats = nuts_kernel(logdensity_fn, pos, generator,
                                     torch.exp(da.log_eps), inv_mass,
-                                    max_depth)
+                                    max_depth, shard=shard)
         da = _da_update(da, stats["accept_prob"], target=target_accept)
     step_size = torch.exp(da.log_eps_avg)
 
@@ -288,7 +297,8 @@ def run_nuts(logdensity_fn: Callable, init_position: torch.Tensor,
     logps = init_position.new_empty((C, num_samples))
     for s in range(num_samples):
         pos, logp, stats = nuts_kernel(logdensity_fn, pos, generator,
-                                       step_size, inv_mass, max_depth)
+                                       step_size, inv_mass, max_depth,
+                                       shard=shard)
         positions[:, s] = pos
         accept[:, s] = stats["accept_prob"]
         logps[:, s] = logp
@@ -308,9 +318,10 @@ class TemporalAMENUTS(_Sampler):
 
     def sample(self, num_warmup: int = 200, num_samples: int = 200,
                mesh=None) -> HMCSamples:
-        """Run the chains (see :meth:`TemporalAMEHMC.sample`)."""
-        gen, inits, inv_mass = self._starts(mesh)
+        """Run the chains (see :meth:`TemporalAMEHMC.sample`, ``mesh``
+        included)."""
+        gen, inits, inv_mass, shard = self._starts(mesh)
         return self._keep(run_nuts(
             self._logdensity, inits, gen, num_warmup=num_warmup,
             num_samples=num_samples, max_depth=self.max_depth,
-            inv_mass=inv_mass))
+            inv_mass=inv_mass, shard=shard), shard)

@@ -198,7 +198,15 @@ def fit_cavi_poisson(Y: torch.Tensor, params: AMEParams,
     optional (n, n, T) observation gate (hidden dyads are never read).
     ``carry``: a previous segment's :meth:`PoissonFitResult.resume_carry`,
     with ``init`` that segment's ``X_mean``/``X_cov``: the follow-up
-    continues the guarded loop bit for bit."""
+    continues the guarded loop bit for bit.  Inputs from
+    :func:`tame_torch.parallel.shard_fit_inputs` run the fit sharded over
+    the mesh (:mod:`tame_torch.parallel.sharded_family`)."""
+    if cavi._sharded(Y, init):
+        from tame_torch.parallel.sharded_family import fit_poisson_sharded
+
+        return fit_poisson_sharded(
+            Y, params, init, max_iter=max_iter, learning_rate=learning_rate,
+            tolerance=tolerance, patience=patience, carry=carry, mask=mask)
     fi = family_inputs(Y, mask)
     logyfac = torch.lgamma(fi.y0 + 1.0)
     params = params.to(Y.device, Y.dtype)

@@ -108,7 +108,7 @@ def run_smc(params: AMEParams, Y: torch.Tensor,
             schedule: str = "adaptive",
             resume_from: Optional[SMCResult] = None,
             max_new_stages: Optional[int] = None,
-            family=None) -> SMCResult:
+            family=None, shard=None) -> SMCResult:
     """Run tempered SMC on ``Y``'s device (see the module docstring).
 
     ``proposal_scale`` (n, T, d): the per-coordinate move scale, the RWM
@@ -130,7 +130,15 @@ def run_smc(params: AMEParams, Y: torch.Tensor,
     pass a previous call's result (same ``num_stages`` buffer) to continue
     it, optionally bounding the stages this call may add; the population,
     weights, evidence, temperature and histories carry over.  Each call
-    draws fresh randomness from ``generator``."""
+    draws fresh randomness from ``generator``.
+
+    ``shard`` (:class:`tame_torch.parallel.mesh.ChainShard`) splits the
+    ``num_particles`` over the ranks of a mesh's ``batch`` axis: a rank
+    draws the whole population's numbers and keeps its particles, moves
+    them, and all-gathers the log-likelihoods (every rank then holds the
+    same weights, ESS, temperature and evidence), the acceptances and, at
+    each stage, the particles the resampling reads from.  The returned
+    ``particles`` are this rank's; ``log_weights`` cover all."""
     if move_kernel not in ("hmc", "rwm"):
         raise ValueError(f"unknown move_kernel {move_kernel!r}; choose "
                          "from ('hmc', 'rwm')")
@@ -156,11 +164,19 @@ def run_smc(params: AMEParams, Y: torch.Tensor,
     def tempered_logp(beta):
         return lambda X: log_prior(params, X, consts) + beta * loglik(X)
 
+    def draw(fn, shape):
+        """``fn`` drawn for the whole population, this rank's share."""
+        kw = dict(generator=generator, device=dev, dtype=dt)
+        return fn(shape, **kw) if shard is None else shard.draw(fn, shape,
+                                                                **kw)
+
+    def gathered(x):
+        return x if shard is None else shard.gather(x)
+
     def rwm_move(X, beta):
         """One random-walk MH step of every particle."""
-        prop = X + step_scale * proposal_scale * torch.randn(
-            X.shape, generator=generator, device=dev, dtype=dt)
-        u = torch.rand(N, generator=generator, device=dev, dtype=dt)
+        prop = X + step_scale * proposal_scale * draw(torch.randn, X.shape)
+        u = draw(torch.rand, (N,))
         target = tempered_logp(beta)
         accept = torch.log(u) < target(prop) - target(X)
         return torch.where(per_chain(accept, X), prop, X), accept.to(dt)
@@ -172,9 +188,8 @@ def run_smc(params: AMEParams, Y: torch.Tensor,
         ``step_scale``).  A step's closing gradient opens the next one."""
         target = tempered_logp(beta)
         # momentum ~ N(0, M); kinetic energy 0.5 p' M^-1 p
-        p = torch.randn(X.shape, generator=generator, device=dev,
-                        dtype=dt) / proposal_scale
-        u = torch.rand(N, generator=generator, device=dev, dtype=dt)
+        p = draw(torch.randn, X.shape) / proposal_scale
+        u = draw(torch.rand, (N,))
 
         def kin(p):
             return 0.5 * ((p * proposal_scale) ** 2).flatten(1).sum(1)
@@ -199,6 +214,8 @@ def run_smc(params: AMEParams, Y: torch.Tensor,
     if resume_from is None:
         particles = sample_latents(params, generator, N * n, T).reshape(
             N, n, T, d).to(dev)
+        if shard is not None:
+            particles = particles[shard.lo:shard.hi]
         lw = torch.zeros(N, dtype=dt, device=dev)
         logev = torch.zeros((), dtype=dt, device=dev)
         beta = torch.zeros((), dtype=dt, device=dev)
@@ -226,7 +243,7 @@ def run_smc(params: AMEParams, Y: torch.Tensor,
     stage = stage0
     while beta_now < 1.0 and stage < stage_cap:
         # 2. reweight (adaptive or fixed increment)
-        ll = loglik(particles)
+        ll = gathered(loglik(particles))
         remaining = 1.0 - beta
         if schedule == "adaptive":
             dbeta = choose_dbeta(lw, ll, beta, ess_threshold * N)
@@ -247,14 +264,17 @@ def run_smc(params: AMEParams, Y: torch.Tensor,
         if schedule == "adaptive":
             do_resample = do_resample | (dbeta < remaining)
         idx = systematic_resample(generator, lw)
-        particles = torch.where(do_resample, particles[idx], particles)
+        if shard is not None:
+            idx = idx[shard.lo:shard.hi]
+        particles = torch.where(do_resample, gathered(particles)[idx],
+                                particles)
         lw = torch.where(do_resample, torch.zeros_like(lw), lw)
         nres = nres + do_resample.to(nres.dtype)
         # 4. move: num_moves MCMC steps per particle
         acc = torch.zeros((), dtype=dt, device=dev)
         for _ in range(num_moves):
             particles, a = move(particles, beta)
-            acc = acc + a.mean()
+            acc = acc + gathered(a).mean()
         ess_h[stage] = ess
         acc_h[stage] = acc / num_moves
         beta_h[stage] = beta
@@ -294,12 +314,17 @@ class TemporalAMESMC:
     def sample(self, mesh=None, stages_per_call=None) -> SMCResult:
         """Run the tempered sweep.  ``stages_per_call`` splits it into
         calls of at most that many stages, carried with ``resume_from``
-        (for checkpointed or very long adaptive schedules).  ``mesh``
-        (particles sharded over devices) raises ``NotImplementedError``:
-        ``tame_torch.parallel`` is not ported."""
+        (for checkpointed or very long adaptive schedules).  ``mesh`` (a
+        :func:`tame_torch.parallel.make_mesh` mesh with a ``batch`` axis
+        that divides ``num_particles``) splits the particles over its
+        ranks (:func:`run_smc`'s ``shard``) and returns a
+        :class:`~tame_torch.parallel.mesh.Sharded` result whose ``full()``
+        gathers them; any other ``mesh`` raises ``TypeError``."""
+        shard = None
         if mesh is not None:
-            raise NotImplementedError(
-                "sample(mesh=...) needs tame_torch.parallel, not ported yet")
+            from tame_torch.parallel.mesh import chain_shard
+
+            shard = chain_shard(mesh, self.num_particles)
         proposal_scale = None
         if self.precondition:
             from tame_torch.inference.hmc import precondition_from_cavi
@@ -311,19 +336,17 @@ class TemporalAMESMC:
         kw = dict(num_particles=self.num_particles,
                   num_stages=self.num_stages, num_moves=self.num_moves,
                   proposal_scale=proposal_scale, obs_mask=self.mask,
-                  family=self.family)
-        if stages_per_call is None:
-            out = run_smc(self.params, self.Y, gen, **kw)
-            self._warn_if_partial(out)
-            return out
+                  family=self.family, shard=shard)
         res = None
         while True:
             res = run_smc(self.params, self.Y, gen, resume_from=res,
                           max_new_stages=stages_per_call, **kw)
             ns = res.n_stages
-            if ns >= self.num_stages or float(res.beta_history[ns - 1]) >= 1.0:
+            if (stages_per_call is None or ns >= self.num_stages
+                    or float(res.beta_history[ns - 1]) >= 1.0):
                 self._warn_if_partial(res)
-                return res
+                return (res if shard is None
+                        else shard.wrap(res, ("particles",)))
 
     @staticmethod
     def _warn_if_partial(result: SMCResult) -> None:

@@ -241,10 +241,19 @@ def smoothed_elbo_from_quad(quad_sum: torch.Tensor, params: AMEParams,
     else:
         n_dyads = mask_stats[0]
         wsum = torch.sum(mask_stats[1] * tr_cov)
+    return smoothed_elbo_from_terms(
+        quad_sum, n_dyads, wsum,
+        *smoothed_prior_entropy(params, pri, state), params, pri, d)
+
+
+def smoothed_elbo_from_terms(quad_sum, n_dyads, wsum, prior0, priort,
+                             entropy, params: AMEParams,
+                             pri: cavi.PriorMatrices, d: int) -> torch.Tensor:
+    """The smoothed ELBO from its sums (as ``cavi.elbo_from_terms``; a
+    sharded fit all-reduces them first)."""
     log_lik = -0.5 * (quad_sum + n_dyads * (pri.logdet_R + 2.0 * _LOG2PI))
     corr = 0.1 * torch.trace(params.R_inv) / d * wsum
     log_lik = log_lik - 0.5 * corr
-    prior0, priort, entropy = smoothed_prior_entropy(params, pri, state)
     return log_lik + prior0 + priort + entropy
 
 
@@ -326,7 +335,21 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     contractions through K5, packed with the block count.  Under a mask
     the JAX function leaves its Pallas smoother; this one does not (see
     :func:`smoothed_step`).
+
+    ``Y`` and ``init`` from :func:`tame_torch.parallel.shard_smoothed_inputs`
+    run the fit sharded over the mesh's ``nodes`` ranks
+    (:func:`tame_torch.parallel.sharded_cavi.fit_smoothed_sharded`).
     """
+    if cavi._sharded(Y, init):
+        from tame_torch.parallel.sharded_cavi import fit_smoothed_sharded
+
+        return fit_smoothed_sharded(
+            Y, params, init, max_iter=max_iter, learning_rate=learning_rate,
+            tolerance=tolerance, patience=patience, corrected=corrected,
+            fused=fused, smoother=smoother, update_mode=update_mode,
+            num_blocks=num_blocks, mixed_precision=mixed_precision,
+            diag_mode=diag_mode, carry_elbo=carry_elbo,
+            carry_patience=carry_patience, mask=mask)
     if diag_mode not in ("exact", "stats"):
         raise ValueError(f"unknown diag_mode: {diag_mode!r}")
     if smoother not in ("auto", "sequential", "parallel"):

@@ -1,0 +1,127 @@
+"""Communication and compute profile of the sharded fit (counterpart of
+:mod:`tame.parallel.comm_analysis`).
+
+The JAX package reads its collectives out of the compiled HLO.  The port
+has no compiled program: its collectives are explicit calls of the mesh's
+:class:`~tame_torch.parallel.comm.Collectives`, which counts them as they
+happen.  :func:`analyze_sharded_fit` therefore runs the sharded fit for
+real, in a spawned gloo world of ``nodes x time`` processes on the CPU
+with zero-valued data (the collectives do not depend on the values), and
+takes one iteration's counts as a fit of two iterations' less a fit of
+one's.  The operations and bytes of the iteration are counted from the
+shapes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+_F32 = 4
+
+
+def count_iteration(mesh, n: int, T: int, r: int, *,
+                    structure: str = "full", update_mode: str = "block",
+                    num_blocks: Optional[int] = None,
+                    diag_mode: str = "exact") -> Dict[str, Dict[str, int]]:
+    """This rank's collectives (``{kind: {"count", "bytes"}}``) in one
+    iteration of the sharded ``fit_cavi`` on ``mesh`` at (n, T, r)."""
+    from tame_torch.config import ModelConfig
+    from tame_torch.inference import cavi
+    from tame_torch.models import build_params
+    from tame_torch.parallel.mesh import shard_fit_inputs
+
+    params = build_params(ModelConfig(n_nodes=n, n_time=T, latent_dim=r,
+                                      seed=0))
+    init = cavi.init_state(torch.Generator().manual_seed(0), n, T, params.d,
+                           structure, 0.1, 0.5)
+    Y = torch.zeros(()).expand(n, n, T, 2)   # sliced per rank, no copy
+    Y_s, init_s = shard_fit_inputs(mesh, Y, init)
+    stats = []
+    for iters in (1, 2):
+        mesh.comm.reset()
+        cavi.fit_cavi(Y_s, params, init_s, structure=structure,
+                      update_mode=update_mode, num_blocks=num_blocks,
+                      diag_mode=diag_mode, max_iter=iters, tolerance=0.0)
+        stats.append(mesh.comm.stats())
+    one, two = stats
+    return {k: {f: two[k][f] - one.get(k, {}).get(f, 0)
+                for f in ("count", "bytes")}
+            for k in two if two[k]["count"] > one.get(k, {}).get("count", 0)}
+
+
+def _count_rank(rank: int, n: int, T: int, r: int, nodes: int,
+                time_axis: int, kw: dict):
+    from tame_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(nodes=nodes, time=time_axis, device="cpu")
+    return count_iteration(mesh, n, T, r, **kw)
+
+
+def iteration_cost(n: int, T: int, r: int, num_blocks: int) -> Dict:
+    """Operations and bytes of one block (or Jacobi, ``num_blocks=1``)
+    iteration over the whole mesh, counted from the shapes:
+
+    * ``flops``: the two weight contractions ``W0 V`` and ``W1 U`` (2 x 2
+      n^2 T r), the residual pass's two predictor products (2 x 2 n^2 T r)
+      and its ~8 elementwise operations per dyad-time, the partner Grams
+      of every block phase (3 x 2 n T r^2 each), and the n T solves with
+      inverse and log-determinants (~2.3 d^3 + d^3 / 3 each);
+    * ``bytes_accessed``: W0 and W1 read once, ``Y`` read once by the
+      residual pass, the means read and written once per block phase and
+      the covariances once per iteration (float32)."""
+    d = 2 + 2 * r
+    flops = (4 * n * n * T * r + 4 * n * n * T * r + 8 * n * n * T
+             + num_blocks * 6 * n * T * r * r
+             + n * T * (2.3 * d ** 3 + d ** 3 / 3))
+    nbytes = _F32 * (2 * n * n * T + 2 * n * n * T
+                     + 2 * num_blocks * n * T * d + 2 * n * T * d * d)
+    return {"flops": float(flops), "bytes_accessed": float(nbytes)}
+
+
+def analyze_sharded_fit(n: int, T: int, r: int, *, nodes: int = 1,
+                        time_axis: int = 1, structure: str = "full",
+                        update_mode: str = "block",
+                        num_blocks: Optional[int] = None,
+                        diag_mode: str = "exact") -> Dict:
+    """One CAVI iteration sharded over a ``nodes x time`` mesh: its
+    collectives and its compute, as the keys of the JAX function.
+
+    ``collectives`` (per-kind count and bytes) and ``collective_bytes``
+    are one rank's, counted in one iteration of the sharded fit run in a
+    spawned gloo world on the CPU (see the module docstring; the JAX
+    function counts the per-device program's collectives the same way).
+    ``flops`` and ``bytes_accessed`` are one iteration's over the whole
+    mesh, counted from the shapes (:func:`iteration_cost`), not measured;
+    the JAX function reports XLA's cost analysis of the whole fit."""
+    from tame_torch.parallel.distributed import spawn_world
+
+    if num_blocks is None:
+        num_blocks = next(k for k in range(min(16, n), 0, -1)
+                          if n % k == 0)
+    kw = dict(structure=structure, update_mode=update_mode,
+              num_blocks=num_blocks, diag_mode=diag_mode)
+    stats = spawn_world(_count_rank, nodes * time_axis,
+                        (n, T, r, nodes, time_axis, kw))[0]
+    phases = num_blocks if update_mode == "block" else 1
+    return {
+        "n": n, "T": T, "r": r, "nodes": nodes, "time": time_axis,
+        "num_blocks": num_blocks, "structure": structure,
+        "update_mode": update_mode,
+        "collectives": stats,
+        "collective_bytes": sum(v["bytes"] for v in stats.values()),
+        **iteration_cost(n, T, r, phases),
+    }
+
+
+def layout_bytes(n: int, T: int, r: int, nodes: int, time_axis: int,
+                 phases: int) -> int:
+    """The bytes one rank's collectives move in one iteration, from the
+    layout: per phase an all-gather of ``nodes x time`` padded pieces of
+    ``ceil(n / phases / nodes) x ceil(T / time) x d`` means, and one
+    all-reduce of the ELBO's 6 sums."""
+    d = 2 + 2 * r
+    piece = (math.ceil(n // phases / nodes) * math.ceil(T / time_axis) * d)
+    return _F32 * (phases * nodes * time_axis * piece + 6)

@@ -1,0 +1,359 @@
+"""The Gaussian CAVI and smoothed fits sharded over a mesh's ``nodes`` and
+``time`` ranks (the port's counterpart of GSPMD partitioning
+:func:`tame.inference.cavi.fit_cavi` and ``fit_cavi_smoothed``).
+
+Node i's update reads only row i of the dyad weights W0 and W1 (both
+directions of each dyad sit in that row, ``W0 = p Y0 + q Y1``) and, from
+the rest of the state, partner sums and Grams over all nodes, O(n T r^2).
+So each rank keeps:
+
+* its rows and time slice of W0 and W1 (placed by
+  :func:`~tame_torch.parallel.mesh.shard_fit_inputs`; rows go to ranks
+  cyclically) and of the covariances;
+* every node's means, replicated.  The partner statistics, the prior's
+  neighbour means at t +- 1 (no halo) and the residuals are computed from
+  them with no collective.
+
+Each block phase of the Gauss-Seidel sweep is split over all ``nodes``
+ranks (every block holds about ``bs / nodes`` of each rank's rows): a rank
+solves its share of the block, B = share x T_local systems in one K1
+launch (one K4 launch on its rows in the smoothed fit), then one padded
+all-gather over the mesh hands every rank the block's new means, so each
+phase reads the freshest global means, as the single-device loop does.  A
+Jacobi sweep is one phase.  The ELBO's sums (the residual sums of the
+rank's rows, its covariance traces, prior terms and entropy, K2 on its
+own factors) are all-reduced as one vector, so every rank applies the
+stopping rule to the same value and stops at the same iteration.  The
+host reads that value once per iteration; the block phases read nothing
+back (gloo on a card stages each collective through the host, which
+synchronises).
+
+Per iteration a rank moves ``nodes x time`` padded pieces of the new means
+(``ceil(bs / nodes) x ceil(T / time) x d`` floats each per block phase)
+and one all-reduce of 6 floats per ELBO; no observation-sized tensor ever
+moves.  With one rank the arithmetic is the single-device loop's; with
+rows split, the residual cross term reads the reciprocal component
+``Y[..., 1]`` in place of the transposed rows (the same numbers).
+
+Not sharded (``NotImplementedError``, ROADMAP A.8's remainder): masks,
+``mixed_precision``, ``diag_mode="stats"``, ``TAME_PACKED_MASK=1`` and
+``update_mode="seq"``.  K3 never runs: ``fused=True`` raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tame_torch.inference import cavi
+from tame_torch.inference import smoothed as sm
+from tame_torch.ops import dyad as dyad_ops
+from tame_torch.parallel.mesh import (
+    Sharded,
+    cov_sharding,
+    gather,
+    slice_len,
+    state_sharding,
+)
+
+_TODO = "listed under ROADMAP A.8 for a later port"
+
+
+def refuse(mask, mixed_precision: bool = False, diag_mode: str = "exact",
+           update_mode: str = "jacobi", fused="auto") -> None:
+    """The options a sharded fit does not take."""
+    for on, what in ((mask is not None, "mask="),
+                     (mixed_precision, "mixed_precision=True"),
+                     (diag_mode == "stats", 'diag_mode="stats"'),
+                     (cavi.packed_mask_requested(), "TAME_PACKED_MASK=1"),
+                     (update_mode == "seq", 'update_mode="seq"')):
+        if on:
+            raise NotImplementedError(
+                f"a sharded fit with {what} is not ported ({_TODO})")
+    if fused is True:
+        raise ValueError("fused=True: K3 runs on one device's tensors, "
+                         "never under a mesh")
+
+
+class Geometry:
+    """This rank's pieces of an (n, T) fit on a (nodes, time) mesh: its
+    rows ``rows`` (a strided slice, row i on rank ``i % nodes``) and time
+    slice ``ts``; :meth:`share` and :meth:`gather_means` place any node
+    range split over the ranks."""
+
+    def __init__(self, mesh, n: int, T: int):
+        self.mesh, self.n, self.T = mesh, n, T
+        self.nodes = mesh.shape["nodes"]
+        self.k = mesh.coord["nodes"]
+        self.rows = mesh.piece("nodes", n)
+        self.ts = mesh.piece("time", T)
+        self.t_pad = -(-T // mesh.shape["time"])
+
+    def share(self, lo: int, hi: int, k=None) -> slice:
+        """Rank ``k``'s rows (this rank's by default) of ``[lo, hi)``."""
+        k = self.k if k is None else k
+        return slice(lo + (k - lo) % self.nodes, hi, self.nodes)
+
+    def local(self, rows: slice) -> slice:
+        """Where this rank's global ``rows`` sit among its local rows."""
+        start = (rows.start - self.k) // self.nodes
+        return slice(start, start + slice_len(rows, self.n))
+
+    def gather_means(self, X: torch.Tensor, new: torch.Tensor, lo: int,
+                     hi: int) -> None:
+        """Every rank's new means of ``[lo, hi)`` (``new`` is this rank's:
+        its share x its time slice) written into the replicated ``X``:
+        one padded all-gather over the mesh."""
+        mesh = self.mesh
+        pad = (-(-(hi - lo) // self.nodes), self.t_pad) + tuple(
+            new.shape[2:])
+        for g, piece in enumerate(mesh.comm.all_gather(new, "mesh", pad)):
+            c = mesh.coord_of(g)
+            rows = self.share(lo, hi, c["nodes"])
+            ts = mesh.piece("time", self.T, c["time"])
+            X[rows, ts] = piece[:slice_len(rows, self.n),
+                                :slice_len(ts, self.T)]
+
+
+def phases(n: int, update_mode: str, num_blocks):
+    """The node ranges updated in turn: one for Jacobi, the blocks for
+    block Gauss-Seidel."""
+    if update_mode == "jacobi":
+        return [(0, n)]
+    if n % num_blocks != 0:
+        raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
+    bs = n // num_blocks
+    return [(b * bs, (b + 1) * bs) for b in range(num_blocks)]
+
+
+def default_blocks(n: int, update_mode: str, num_blocks):
+    if update_mode == "block" and num_blocks is None:
+        return next(k for k in range(min(16, n), 0, -1) if n % k == 0)
+    return num_blocks
+
+
+def residual_partials(Yl: torch.Tensor, X: torch.Tensor, geo: Geometry,
+                      r: int):
+    """``(sq, cross)`` of :func:`tame_torch.ops.dyad.residual_stats_from_fwd`
+    over this rank's rows and time slice: ``e0[i, j] = y_ij - m_ij`` from
+    ``Yl[..., 0]``; its partner ``e0[j, i]`` is a transpose where the rank
+    holds every row, else ``y_ji - m_ji`` from the reciprocal component
+    ``Yl[..., 1]``."""
+    a, b, U, V = dyad_ops.split_state(X[:, geo.ts], r)
+    rows = geo.rows
+    fwd = (a[rows][:, None, :] + b[None, :, :]
+           + torch.einsum("...itr,...jtr->...ijt", U[rows], V))
+    ids = torch.arange(geo.n, device=Yl.device)
+    off = (ids[None, :] != ids[rows][:, None]).to(Yl.dtype)[..., None]
+    e0 = (Yl[..., 0] - fwd) * off
+    if geo.nodes == 1:
+        return torch.sum(e0 * e0), torch.sum(e0 * e0.transpose(0, 1))
+    bwd = (a[None, :, :] + b[rows][:, None, :]
+           + torch.einsum("...jtr,...itr->...ijt", U, V[rows]))
+    e1 = (Yl[..., 1] - bwd) * off
+    return torch.sum(e0 * e0), torch.sum(e0 * e1)
+
+
+def prior_partials(params, pri: cavi.PriorMatrices, Xr: torch.Tensor,
+                   cov: torch.Tensor, t0: int):
+    """``cavi.state_prior_terms`` over this rank's rows and time slice:
+    ``Xr`` (m, T, d) the rows' means at every t (replicated), ``cov`` (m,
+    T_local, d, d) their covariances from ``t0``.  The transition terms of
+    the local steps t >= 1 read the mean at t - 1 from ``Xr``."""
+    d = Xr.shape[-1]
+    zero = Xr.new_zeros(())
+    prior0 = priort = zero
+    if t0 == 0:
+        mu0 = Xr[:, 0]
+        quad0 = torch.einsum("ia,ab,ib->i", mu0, pri.Sigma0_inv, mu0)
+        trace0 = torch.einsum("ab,iba->i", pri.Sigma0_inv, cov[:, 0])
+        prior0 = -0.5 * torch.sum(quad0 + trace0 + pri.logdet_Sigma0
+                                  + d * cavi._LOG2PI)
+    lo, hi = max(t0, 1), t0 + cov.shape[1]
+    if hi > lo:
+        residt = Xr[:, lo:hi] - Xr[:, lo - 1:hi - 1] @ params.Phi.T
+        quadt = torch.einsum("ita,ab,itb->it", residt, pri.Q_inv, residt)
+        tracet = torch.einsum("ab,itba->it", pri.Q_inv, cov[:, lo - t0:])
+        priort = -0.5 * torch.sum(quadt + tracet + pri.logdet_Q
+                                  + d * cavi._LOG2PI)
+    return prior0, priort
+
+
+def replicated_means(init: Sharded, field: str = "X_mean") -> torch.Tensor:
+    """The whole means tensor from every rank's piece of a sharded state."""
+    return gather(init.mesh, getattr(init.local, field), init.spec[field],
+                  init.sizes)
+
+
+def _check(Y, init) -> None:
+    if Y.mesh is not init.mesh:
+        raise ValueError("Y and the initial state lie on different meshes")
+
+
+def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
+                     update_mode: str, max_iter: int, learning_rate,
+                     tolerance, patience: int, num_blocks, corrected: bool,
+                     elbo_every: int, mixed_precision: bool, diag_mode: str,
+                     fused, carry_elbo, carry_patience: int,
+                     mask) -> Sharded:
+    """:func:`tame_torch.inference.cavi.fit_cavi` on inputs from
+    :func:`~tame_torch.parallel.mesh.shard_fit_inputs` (see the module
+    docstring).  The result holds this rank's ``X_mean``/``X_cov`` pieces;
+    ``full()`` gathers a plain ``FitResult``."""
+    refuse(mask, mixed_precision, diag_mode, update_mode, fused)
+    if update_mode not in ("jacobi", "block"):
+        raise ValueError(f"unknown update_mode: {update_mode!r}")
+    _check(Y, init)
+    mesh, comm = Y.mesh, Y.mesh.comm
+    n, T = Y.sizes["nodes"], Y.sizes["time"]
+    d = init.local.X_mean.shape[-1]
+    r = (d - 2) // 2
+    geo = Geometry(mesh, n, T)
+    params = params.to(mesh.device)
+    obs = cavi.precompute_obs_constants(Y.local, params.R_inv)
+    pri = cavi.precompute_priors(params)
+    prior_P = cavi._prior_precision(pri, T)[geo.ts][None]
+    solver = cavi._SOLVERS[structure]
+    p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
+    lr = float(learning_rate)
+    X = replicated_means(init)
+    X_cov = init.local.X_cov.clone()
+    steps = phases(n, update_mode, default_blocks(n, update_mode,
+                                                  num_blocks))
+    buf = cavi.history_buffer(max_iter)
+    eh = np.full(buf, np.nan, np.float32)
+    mh = np.full(buf, np.nan, np.float32)
+    rule = cavi._StopRule(carry_elbo, carry_patience, tolerance, patience)
+    it = 0
+    while it < max_iter and rule.running:
+        for lo, hi in steps:
+            rows = geo.share(lo, hi)
+            loc = geo.local(rows)
+            P, eta = cavi.rows_obs_terms(
+                X[:, geo.ts], rows, obs.W0[loc], obs.W1[loc], obs.eta_a[loc],
+                obs.eta_b[loc], params.R_inv, corrected)
+            eta = eta + cavi._prior_nat_param(pri, X[rows])[:, geo.ts]
+            new = X[rows, geo.ts]
+            if P.shape[0]:  # no row here of a block smaller than nodes
+                mu_new, cov_new = solver(P + prior_P, eta)
+                new = lr * mu_new + (1.0 - lr) * new
+                X_cov[loc] = lr * cov_new + (1.0 - lr) * X_cov[loc]
+            geo.gather_means(X, new, lo, hi)
+        elbo = None
+        if (it + 1) % elbo_every == 0 or it + 1 == max_iter:
+            own = cavi.CaviState(X[geo.rows, geo.ts], X_cov)
+            sq, cross = residual_partials(Y.local, X, geo, r)
+            tr = torch.diagonal(X_cov, dim1=-2, dim2=-1).sum(-1)
+            parts = comm.all_reduce(torch.stack([
+                sq, cross, torch.sum(tr),
+                *prior_partials(params, pri, X[geo.rows], X_cov,
+                                geo.ts.start),
+                cavi.gaussian_entropy(own)]), "mesh")
+            sq, cross, tr, prior0, priort, ent = parts
+            wsum = (n - 1) * tr if structure in ("full", "block") else None
+            elbo_t = cavi.elbo_from_terms(
+                p_ * sq + q_ * cross, n * (n - 1) // 2 * T, wsum, prior0,
+                priort, ent, params, pri, d)
+            elbo, mse = torch.stack([elbo_t,
+                                     2.0 * sq / (n * (n - 1) * T)]).tolist()
+            eh[it], mh[it] = elbo, mse
+        rule.update(elbo)
+        it += 1
+    local = cavi.FitResult(
+        X_mean=X[geo.rows, geo.ts].clone(), X_cov=X_cov,
+        elbo_history=torch.from_numpy(eh), mse_history=torch.from_numpy(mh),
+        n_iter=it, converged=rule.converged, diverged=rule.diverged,
+        last_elbo=float(rule.prev), pat_count=rule.pat)
+    return Sharded(local, mesh, Y.sizes,
+                   {"X_mean": state_sharding(mesh).spec,
+                    "X_cov": cov_sharding(mesh).spec})
+
+
+def fit_smoothed_sharded(Y: Sharded, params, init: Sharded, *,
+                         max_iter: int, learning_rate, tolerance,
+                         patience: int, corrected: bool, fused, smoother: str,
+                         update_mode: str, num_blocks, mixed_precision: bool,
+                         diag_mode: str, carry_elbo, carry_patience: int,
+                         mask) -> Sharded:
+    """:func:`tame_torch.inference.smoothed.fit_cavi_smoothed` on inputs
+    from :func:`~tame_torch.parallel.mesh.shard_smoothed_inputs`: every
+    block phase solves this rank's share of the block's trajectories in
+    one :func:`~tame_torch.ops.fused_smoother.fused_smoother` call (K4 on
+    the card; the associative-scan smoother under
+    ``smoother="parallel"``), then gathers the new means.  The result's
+    state holds this rank's pieces; ``full()`` gathers a plain
+    ``SmoothedFitResult``."""
+    refuse(mask, mixed_precision, diag_mode)
+    if smoother not in ("auto", "sequential", "parallel"):
+        raise ValueError(f"unknown smoother: {smoother!r}")
+    if update_mode not in ("auto", "jacobi", "block"):
+        raise ValueError(f"unknown update_mode: {update_mode!r}")
+    if fused is True and smoother == "parallel":
+        raise ValueError("fused=True and smoother='parallel' are mutually "
+                         "exclusive solver choices")
+    _check(Y, init)
+    mesh, comm = Y.mesh, Y.mesh.comm
+    if mesh.shape["time"] != 1:
+        raise ValueError("the smoothed engine shards over 'nodes' only; "
+                         "build the mesh with time=1")
+    n, T = Y.sizes["nodes"], Y.sizes["time"]
+    d = init.local.X_mean.shape[-1]
+    r = (d - 2) // 2
+    if fused is True and not sm.fused_smoother_supported(n, T, d):
+        raise ValueError(f"fused smoother unsupported for n={n}, T={T}, "
+                         f"d={d} (needs an even d from 4 to 48)")
+    if update_mode == "auto":
+        update_mode = "block" if n >= 256 else "jacobi"
+    geo = Geometry(mesh, n, T)
+    params = params.to(mesh.device)
+    obs = cavi.precompute_obs_constants(Y.local, params.R_inv)
+    pri = cavi.precompute_priors(params)
+    solve = sm._trajectory_solver(pri, params, T, smoother == "parallel")
+    p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
+    lr = float(learning_rate)
+    X = replicated_means(init)
+    X_cov, X_cross = init.local.X_cov.clone(), init.local.X_cross.clone()
+    logdets = init.local.logdets.clone()
+    steps = phases(n, update_mode, default_blocks(n, update_mode,
+                                                  num_blocks))
+    buf = cavi.history_buffer(max_iter)
+    eh = np.full(buf, np.nan, np.float32)
+    mh = np.full(buf, np.nan, np.float32)
+    rule = cavi._StopRule(carry_elbo, carry_patience, tolerance, patience)
+    it = 0
+    while it < max_iter and rule.running:
+        for lo, hi in steps:
+            rows = geo.share(lo, hi)
+            loc = geo.local(rows)
+            D_obs, bvec = cavi.rows_obs_terms(
+                X, rows, obs.W0[loc], obs.W1[loc], obs.eta_a[loc],
+                obs.eta_b[loc], params.R_inv, corrected)
+            new = X[rows]
+            if D_obs.shape[0]:  # no row here of a block smaller than nodes
+                out = solve(D_obs, bvec)
+                new = lr * out.mean + (1.0 - lr) * new
+                X_cov[loc], X_cross[loc] = out.cov, out.cross_cov
+                logdets[loc] = out.logdet
+            geo.gather_means(X, new, lo, hi)
+        state = sm.SmoothedState(X[geo.rows], X_cov, X_cross, logdets)
+        sq, cross = residual_partials(Y.local, X, geo, r)
+        tr = torch.diagonal(X_cov, dim1=-2, dim2=-1).sum(-1)
+        parts = comm.all_reduce(torch.stack([
+            sq, cross, torch.sum(tr),
+            *sm.smoothed_prior_entropy(params, pri, state)]), "mesh")
+        sq, cross, tr, prior0, priort, ent = parts
+        elbo_t = sm.smoothed_elbo_from_terms(
+            p_ * sq + q_ * cross, n * (n - 1) // 2 * T, (n - 1) * tr,
+            prior0, priort, ent, params, pri, d)
+        elbo, mse = torch.stack([elbo_t,
+                                 2.0 * sq / (n * (n - 1) * T)]).tolist()
+        eh[it], mh[it] = elbo, mse
+        rule.update(elbo)
+        it += 1
+    local = sm.SmoothedFitResult(
+        state=sm.SmoothedState(X[geo.rows].clone(), X_cov, X_cross,
+                               logdets),
+        elbo_history=torch.from_numpy(eh), mse_history=torch.from_numpy(mh),
+        n_iter=it, converged=rule.converged, diverged=rule.diverged,
+        last_elbo=float(rule.prev), pat_count=rule.pat)
+    return Sharded(local, mesh, Y.sizes, {"state": init.spec})

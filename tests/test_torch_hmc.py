@@ -165,7 +165,7 @@ class TestEngine:
                              "logdensity_rhat"}
         assert hmc.diagnostics() is diag           # cached until sample()
         assert 0 < diag["min_ess"] <= 2 * 20
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="mesh"):
             hmc.sample(num_warmup=1, num_samples=1, mesh=object())
         assert TemporalAMEHMC(model, family="poisson").precondition is False
         one = TemporalAMEHMC(model, num_chains=1, num_leapfrog=2)

@@ -176,5 +176,5 @@ def test_engine_on_temporal_ame():
     assert torch.isfinite(out.positions).all()
     assert float(out.accept_prob.mean()) > 0.4
     assert set(nuts.diagnostics()) >= {"max_rhat", "logdensity_rhat"}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         nuts.sample(num_warmup=1, num_samples=1, mesh=object())

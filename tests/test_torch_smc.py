@@ -193,5 +193,5 @@ def test_move_kernels_schedules_and_options(tiny):
                          mask=mask, precondition=False).sample()
     assert torch.isfinite(res.log_evidence)
     assert TemporalAMESMC(tiny, family="poisson").precondition is False
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         TemporalAMESMC(tiny).sample(mesh=object())
