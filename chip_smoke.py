@@ -21,8 +21,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    same bits), and time both with CUDA events
    (median of several runs; K1, K2, K5 and K6 as launches replayed from
    one CUDA graph, their device time, K5's block stripes in rotation over
-   the 16 stripes of the mask, with one wrapper call between two events
-   beside it), beside the kernel's bound (bytes over
+   the 16 stripes of the mask, and a sharded rank's 16 ragged stripes of
+   63 or 62 rows, with one wrapper call between two events beside it),
+   beside the kernel's bound (bytes over
    3.35 TB/s or operations over the peak rate of their type, whichever is
    larger) and, where one PyTorch call computes the same function, that
    call's time;
@@ -161,18 +162,37 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     launches per iteration each and K3 never; then the 100-iteration
     fixed-budget fit on that mesh and the one-rank warm smoothed fit (10
     iterations) as references, and the plain and one-rank fits timed in
-    turns (30 iterations each);
+    turns (30 iterations each); then, with 30 % of the dyads hidden
+    (``hidden_dyads``) and the production flags (bf16 weights, stats
+    diagnostics), the masked fit through the bf16 einsum mask and through
+    K5 (``TAME_PACKED_MASK=1``), each to its stop, and the masked smoothed
+    fit through K4 and K5 (10 iterations), each beside its plain fit and
+    bit for bit (means, ELBO history, stop; 32 K5 launches per masked
+    block iteration, 48 per masked smoothed iteration, K3 never); the
+    masked fits' 30-iteration references; the plain seq sweep at the demo
+    shape (30 iterations at most) and the masked Bernoulli and Poisson
+    fits at n=1000, T=20, r=2 (20 iterations) as references;
 40. two spawned ranks sharing the card (gloo, staged through host memory;
     the kernels built by this process, loaded by the ranks), each drawing
     the data on the card and keeping its rows: the same fit at the fixed
     budget (max |dX_mean| < 5e-4, ELBO within 1e-5 of phase 39's, 16 K1
     and 1 K2 launches per iteration per rank) and to the stop (the same
     iteration on both ranks), ms per iteration and the collectives of one
-    iteration counted;
+    iteration counted; then the masked einsum and K5 fits at 30
+    iterations against phase 39's (the same bounds; 32 K5 launches per
+    iteration per rank) and to the stop (one stop on every rank, printed
+    beside the plain fit's), the collectives of one masked iteration; the
+    seq sweep on both ranks (the plain fit's stop, ELBO within 1e-5; n T
+    K1 launches per iteration on every rank), the masked Bernoulli and
+    Poisson fits (5e-4 / 1e-5) and a Poisson fit killed at 8 of 16
+    iterations and resumed from the sharded result's carry (the one-shot
+    sharded fit's bits);
 41. the same with NCCL and one rank per card (up to 4) where the machine
     has 2 cards or more; otherwise a line says it did not run;
 42. in those worlds, the warm smoothed fit sharded over nodes: 16 K4
-    launches per iteration per rank, ELBO within 1e-5 of phase 39's;
+    launches per iteration per rank, ELBO within 1e-5 of phase 39's; and
+    the masked smoothed fit through K4 and K5 (16 and 48 launches per
+    iteration per rank), ELBO within 1e-5 of phase 39's;
 43. in those worlds, the batch axis at ``tests/test_parallel.py``'s sizes:
     HMC 64 chains within 1e-5 of the unsharded run, SMC 64 particles and
     the evidence within 1e-4, NUTS finite with the mean within 0.5;
@@ -854,8 +874,9 @@ def phase_contract_kernels(report: dict) -> None:
     bf16 ``bmm`` that computes the same products.  Their ``ms`` is device
     time, launches replayed from one CUDA graph
     (``contract_probe.rotating_graph_ms``), K5's block stripes in rotation
-    over the 16 stripes of the mask, so each arrives cold as in a block
-    sweep; ``call_ms`` is one wrapper call between two events.  K6's two
+    over the 16 stripes of the mask (or a sharded rank's 16 shares), so
+    each arrives cold as in a block sweep; ``call_ms`` is one wrapper call
+    between two events.  K6's two
     launches on the same inputs must give the same bits."""
     from tame_torch.inference import cavi
     from tame_torch.models import random_dyad_mask
@@ -875,11 +896,23 @@ def phase_contract_kernels(report: dict) -> None:
     # n=2000 block phase (16 blocks, bs=125) with the precision and the
     # stats panel, the ragged n=20 case (every stripe) and the full n=2000
     # mask as one stripe.
+    # The sharded path's stripes: on two nodes ranks (rows cyclic), rank
+    # k's share of block b is its rows of [125 b, 125 b + 125), 63 or 62
+    # of them, packed by pack_rows as sharded_cavi.rank_inputs packs them;
+    # rank 0's 16 stripes in rotation, as its block sweep reads them.
     blocks = list(mc.pack_mask(mask, 16))
+    shares = [[slice(lo + (k - lo) % 2, lo + 125, 2)
+               for lo in range(0, n, 125)] for k in range(2)]
+    rank0 = mc.pack_rows(mask, shares[0])
+    ragged = [rank0[0], mc.pack_rows(mask, shares[1][:1])[0]]  # 63, 62
     small_stripes = list(mc.pack_mask(small, 4))
     whole = [mc.pack_mask(mask, 1)[0]]
     cases = [("n=2000 bs=125 K=57", blocks[:1], blocks, panels[57]),
              ("n=2000 bs=125 K=56", blocks[:1], blocks, panels[56]),
+             ("n=2000 rank share 63/62 rows K=57", ragged, rank0,
+              panels[57]),
+             ("n=2000 rank share 63/62 rows K=56", ragged, rank0,
+              panels[56]),
              ("n=20 T=3 K=5 nb=4", small_stripes, small_stripes,
               torch.randn(20, 3, 5, device="cuda", generator=gen)),
              ("n=2000 one stripe K=57", whole, whole, panels[57])]
@@ -918,8 +951,13 @@ def phase_contract_kernels(report: dict) -> None:
         if "ms" not in entry:  # the path's shape: one block phase
             entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, **b)
+        if label.startswith("n=2000 rank share") and "sharded" not in entry:
+            # the sharded path's shape: a rank's 63-row share of a block
+            entry["sharded"] = dict(rows=Mp.shape[1], ms=ms,
+                                    call_ms=call_ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, **b)
         del Mb, Zb
-    del blocks, small_stripes, whole
+    del blocks, rank0, ragged, small_stripes, whole
 
     entry = report["dual_contract"]
     entry.update(max_abs_err=0.0, launches=0)
@@ -1164,6 +1202,7 @@ SEQ_ELBO_RTOL = 1e-4  # card vs CPU seq fit: f32 sums in another order
 FORECAST_RTOL = 1e-5  # card vs CPU forecast: a few f32 products
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 SEQ_MS: dict = {}
+SEQ_DEMO_ITERS = 50  # Naive/Good at MSE 0.261, Bad at 1.36 by then (CPU)
 CKPT: dict = {}
 
 
@@ -1193,17 +1232,18 @@ def seq_engines(model):
 
 
 def phase_seq(name: str):
-    """One seq fit (150 iterations at most) at the demo shape on the card,
+    """One seq fit (50 iterations at most; the demo's 150 cut for the
+    script's time) at the demo shape on the card,
     held to the same fit on the CPU from the same data and init; returns
     (its iterations, its final MSE, whether it diverged)."""
     card = dict(seq_engines(demo_model("cuda")))[name]
     cpu = dict(seq_engines(demo_model("cpu")))[name]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    h = card.fit(max_iter=150, verbose=False)
+    h = card.fit(max_iter=SEQ_DEMO_ITERS, verbose=False)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / len(h["elbo"])
-    hc = cpu.fit(max_iter=150, verbose=False)
+    hc = cpu.fit(max_iter=SEQ_DEMO_ITERS, verbose=False)
     m = min(len(h["elbo"]), len(hc["elbo"]))
     rel = max(abs(a - b) / abs(b) for a, b in zip(h["elbo"][:m],
                                                   hc["elbo"][:m]))
@@ -1690,6 +1730,7 @@ PTRI_ATOL = 5e-4        # parallel vs sequential smoother (tame's bound)
 PTRI_LOGDET_RTOL = 1e-4
 PARALLEL_ELBO_RTOL = 1e-4   # parallel vs K4 smoothed fit, every iteration
 LOGPROB_RTOL = 1e-5     # card vs CPU log density and gradient
+GRAPH_RTOL = 1e-4       # graph replay vs eager gradient: f32 sum order
 CARD = ""               # nvidia-smi's name and power limit, set in main
 SAMPLERS: dict = {}     # the sampler phases' numbers, printed at the end
 
@@ -1848,9 +1889,12 @@ def phase_logprob() -> dict:
 
 def phase_nuts() -> dict:
     """``mcmc_bench`` at its width (n=128, T=16, r=2, 64 chains, depth 6,
-    CAVI-preconditioned), warmup and draws cut to 600 + 100 (the chains
-    climb from the CAVI start to the typical set in ~500 transitions, so
-    a shorter warmup samples a trend): the
+    CAVI-preconditioned, each gradient the replay of one captured CUDA
+    graph), warmup and draws cut to 600 + 100 (the chains climb from the
+    CAVI start to the typical set in ~500 transitions, so a shorter warmup
+    samples a trend: 300 + 100 gave a log-density R-hat of 5.67, and depth
+    4 or 5 did not mix either): the graphed gradient within 1e-4 of the
+    eager one (of its largest entry), the
     log-density split-R-hat <= 1.1, the mean accept statistic in [0.6,
     0.95], the median dyad-mean effect size against the SMF fit < 0.3."""
     from tame_torch.scripts import mcmc_bench
@@ -1859,13 +1903,16 @@ def phase_nuts() -> dict:
     SAMPLERS["nuts"] = {k: res[k] for k in (
         "wall_s", "ess_per_s_median", "ess_per_s_min", "ess_median",
         "syncs_per_transition", "steps_per_transition", "grad_ms",
-        "grad_kernels", "grad_device_ms", "ms_per_gradient_in_run",
+        "grad_kernels", "grad_device_ms", "graph_grad_ms",
+        "graph_rel_diff", "ms_per_gradient_in_run",
         "accept_mean", "logdensity_rhat", "split_rhat_max",
         "smf_effect_size_median", "step_size_median")}
     print(f"NUTS n=128 T=16 r=2, 64 chains: ESS/s median "
           f"{res['ess_per_s_median']} (min {res['ess_per_s_min']}), "
           f"{res['syncs_per_transition']} host readbacks per transition, "
           f"{res['wall_s']} s on {CARD}", flush=True)
+    require(res["graph_rel_diff"] <= GRAPH_RTOL, f"the graphed gradient "
+            f"departs from the eager one: {res['graph_rel_diff']}")
     require(res["logdensity_rhat"] <= 1.1, "NUTS log-density R-hat > 1.1")
     require(0.6 <= res["accept_mean"] <= 0.95,
             f"NUTS mean accept {res['accept_mean']} outside [0.6, 0.95]")
@@ -1901,12 +1948,14 @@ def phase_hmc() -> dict:
 
 def phase_smc() -> dict:
     """``smc_bench`` at its width (n=64, T=8, r=2, 256 particles, buffer
-    600, 6 moves x 20 leapfrog, 30 stages per call), one replicate (cut
-    from 4): beta reaches 1 inside the buffer and the log-evidence lies
-    above the exact ELBO less 3 nats (``tests/test_mcmc.py``)."""
+    600, 20 leapfrog, 30 stages per call), one replicate (cut from 4) of
+    3 moves a stage (cut from 6; 194 stages, the evidence 47 nats above
+    the exact ELBO on an H100, against 102 with 6): beta reaches 1 inside
+    the buffer and the log-evidence lies above the exact ELBO less 3
+    nats (``tests/test_mcmc.py``)."""
     from tame_torch.scripts import smc_bench
 
-    res = smc_bench.main(["--replicates", "1"])
+    res = smc_bench.main(["--replicates", "1", "--moves", "3"])
     SAMPLERS["smc"] = {k: res[k] for k in (
         "stages", "wall_s_per_replicate", "kl_gap_nats", "log_evidence_mean",
         "exact_elbo", "accept_mean", "resamples_mean")}
@@ -2005,9 +2054,9 @@ def shape_flags(shape: dict) -> list:
     return [a for k, v in shape.items()
             for a in (f"--{k.replace('_', '-')}", str(v))]
 # The sampler phases cut the CLI's 200 + 200 draws to fit the time budget
-# (NUTS 30 + 30, HMC 50 + 50; the model, the chains and SMC's particles stay
+# (NUTS 15 + 15, HMC 50 + 50; the model, the chains and SMC's particles stay
 # at the CLI's defaults).
-SAMPLER_DRAWS = {"nuts": ["--num-warmup", "30", "--num-samples", "30"],
+SAMPLER_DRAWS = {"nuts": ["--num-warmup", "15", "--num-samples", "15"],
                  "hmc": ["--num-warmup", "50", "--num-samples", "50"],
                  "smc": []}
 
@@ -2454,6 +2503,21 @@ SHARDED_DX, SHARDED_ELBO_RTOL = 5e-4, 1e-5
 SMOOTHED_ELBO_RTOL = 1e-5
 BUDGET, SMOOTHED_ITERS, TURN_ITERS = 100, 10, 30
 ATOL_HMC, ATOL_SMC = 1e-5, 1e-4
+# The sharded masked legs: masked_fit's flags (bf16 weights, stats
+# diagnostics, lr 0.8) with SHARDED_FIT's 16 blocks; the bf16 einsum mask
+# and K5 (TAME_PACKED_MASK=1).
+MASKED_FIT = dict(SHARDED_FIT, mixed_precision=True, diag_mode="stats")
+MASKED_SMOOTHED = dict(max_iter=SMOOTHED_ITERS, tolerance=0.0,
+                       learning_rate=0.8, update_mode="block", num_blocks=16,
+                       mixed_precision=True, diag_mode="stats")
+MASKED_PATHS = (("masked einsum", False), ("masked K5", True))
+MASKED_BUDGET, SEQ_ITERS, FAMILY_ITERS = 30, 30, 20
+NS_SHAPE = (2000, 50, 4)         # (n, T, r) of the sharded north-star legs
+SHARDED_FAMILY = (1000, 20, 2)   # (n, T, r) of the sharded family legs
+RESUME_TOTAL, RESUME_KILL = 16, 8
+# Several ranks' seq sweep: the same solves, the ELBO summed in another
+# order.
+SEQ_SHARDED_RTOL = 1e-5
 
 
 def north_star_inputs(device="cuda"):
@@ -2487,15 +2551,91 @@ def counted(wrappers: dict, fn):
     return out, {k: w.launches for k, w in wrappers.items()}
 
 
+def launches_of(wrappers: dict, fn):
+    """``(fn(), launches)``, the launches ``fn`` added: the counters run on,
+    so a path's own counts keep them."""
+    before = {k: w.launches for k, w in wrappers.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches - before[k] for k, w in wrappers.items()}
+
+
 def kernel_wrappers() -> dict:
     from tame_torch.ops import cholesky as ch
     from tame_torch.ops import fused_fit as ff
     from tame_torch.ops import fused_smoother as fs
+    from tame_torch.ops import masked_contract as mc
 
     return {"spd_solve_inv": ch.spd_solve_inv_kernel,
             "logdet_spd": ch.logdet_spd_kernel,
             "fused_fit": ff.fused_fit_kernel,
-            "fused_smoother": fs.fused_smoother_kernel}
+            "fused_smoother": fs.fused_smoother_kernel,
+            "masked_contract": mc.packed_rows_contract_kernel}
+
+
+def masked_launches(label: str, c: dict, n_iter: int, packed: bool) -> None:
+    """A masked north-star fit's launches: 16 K1 and 1 K2 per iteration,
+    32 K5 under TAME_PACKED_MASK=1 (16 block-phase stripes and 16
+    diagnostics stripes), K3 never."""
+    k5 = 32 * n_iter if packed else 0
+    require(c["spd_solve_inv"] == 16 * n_iter and c["logdet_spd"] == n_iter
+            and c["masked_contract"] == k5 and c["fused_fit"] == 0,
+            f"{label}: not 16 K1, 1 K2 and {k5 // max(n_iter, 1)} K5 "
+            f"launches per iteration ({n_iter}), K3 never: {c}")
+
+
+def smoothed_launches(label: str, c: dict, n_iter: int) -> None:
+    """The masked smoothed fit through K5: 16 K4 and 48 K5 launches per
+    iteration (precision and offset stripes per phase, diagnostics
+    stripes)."""
+    require(c["fused_smoother"] == 16 * n_iter
+            and c["masked_contract"] == 48 * n_iter,
+            f"{label}: not 16 K4 and 48 K5 launches per iteration "
+            f"({n_iter}): {c}")
+
+
+def seq_inputs():
+    """The demo data on the card, its parameters and a Good-SMF init from a
+    CPU generator seeded 0: the same numbers in every process."""
+    from tame_torch.inference import cavi
+
+    model = demo_model("cuda")
+    init = cavi.init_state(torch.Generator().manual_seed(0), 15, 10, 6,
+                           "full", 0.1, 0.5)
+    return model.Y, model.params.to("cuda"), init
+
+
+def seq_fit(Y, params, init, max_iter=SEQ_ITERS):
+    from tame_torch.inference import cavi
+
+    return cavi.fit_cavi(Y, params, init, structure="full",
+                         update_mode="seq", learning_rate=0.7,
+                         max_iter=max_iter)
+
+
+def family_sharded_inputs(family: str):
+    """``family_model``'s n=1000, T=20, r=2 data with 30 % of the dyads
+    hidden (drawn on the card) and a random init from a CPU generator
+    seeded 1."""
+    from tame_torch.inference import cavi
+    from tame_torch.models import random_dyad_mask
+
+    model = family_model(family, *SHARDED_FAMILY)
+    mask = random_dyad_mask(torch.Generator(device="cuda").manual_seed(1),
+                            *SHARDED_FAMILY[:2], MISSING_FRAC)
+    init = cavi.init_state(torch.Generator().manual_seed(1),
+                           *SHARDED_FAMILY[:2], 6, "full", 0.1, 0.5)
+    return model.Y, model.params.to("cuda"), init, mask
+
+
+def family_sharded_fit(family: str, Y, params, init, mask, **kw):
+    from tame_torch.inference import fit_cavi_bernoulli, fit_cavi_poisson
+
+    if family == "bernoulli":
+        return fit_cavi_bernoulli(Y, params, init, mask=mask,
+                                  learning_rate=0.8, tolerance=0.0, **kw)
+    return fit_cavi_poisson(Y, params, init, mask=mask, learning_rate=0.7,
+                            tolerance=0.0, **kw)
 
 
 def sampler_model():
@@ -2561,6 +2701,7 @@ def sharded_rank(rank: int, backend: str, refs: dict) -> dict:
     Y, params, init = north_star_inputs()
     warm = smoothed.warm_init_smoothed_state(Y, params)
     warm = type(warm)(*(t.cpu() for t in warm))
+    mask = hidden_dyads(*NS_SHAPE[:2]).cpu()   # a rank keeps only its rows
     Y = Y.cpu()   # a rank keeps only its rows on the card
     torch.cuda.empty_cache()
     out = {"rank": rank, "device": str(mesh.device)}
@@ -2575,7 +2716,7 @@ def sharded_rank(rank: int, backend: str, refs: dict) -> dict:
     out["budget_elbo_rel"] = max_rel(fit.elbo_history[:BUDGET],
                                      refs["elbo"])
     out["collectives_per_iteration"] = count_iteration(
-        mesh, 2000, 50, 4, num_blocks=16)
+        mesh, *NS_SHAPE, num_blocks=16)
     conv, out["stop_launches"] = counted(wrappers, lambda: cavi.fit_cavi(
         Y_s, params, init_s, max_iter=200, **SHARDED_FIT))
     out["stop"] = (conv.n_iter, conv.converged)
@@ -2589,11 +2730,121 @@ def sharded_rank(rank: int, backend: str, refs: dict) -> dict:
                                    / SMOOTHED_ITERS)
     out["smoothed_elbo_rel"] = max_rel(sm.elbo_history[:SMOOTHED_ITERS],
                                        refs["smoothed_elbo"])
-    del Y, Y_s, Ys_s, fit, full, conv, sm
+    del fit, full, conv, sm
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out.update(sharded_masked(mesh, wrappers, Y_s, Ys_s, warm_s, params,
+                              init_s, mask, refs))
+    del Y, Y_s, Ys_s, warm_s, mask
+    torch.cuda.empty_cache()
+    out.update(sharded_small_legs(mesh, wrappers, refs))
+    out["new_legs_s"] = time.perf_counter() - t0
     batch = make_mesh(batch=world, device="cuda", backend=backend)
     out.update(sharded_samplers(batch))
     return out
+
+
+def sharded_masked(mesh, wrappers, Y_s, Ys_s, warm_s, params, init_s, mask,
+                   refs) -> dict:
+    """One rank's masked north-star legs (phases 40-42): the production
+    flags through the bf16 einsum mask and through K5, at the fixed budget
+    against the one-rank references and to the stop; the masked smoothed
+    fit (from phase 42's warm init) through K4 and K5; the collectives of
+    one masked iteration."""
+    from tame_torch.inference import cavi, smoothed
+    from tame_torch.parallel.comm_analysis import count_iteration
+
+    out = {}
+    for label, packed in MASKED_PATHS:
+        ref = refs["masked"][label]
+        with packed_mask_env(packed):
+            t0 = time.perf_counter()
+            fit, c = counted(wrappers, lambda: cavi.fit_cavi(
+                Y_s, params, init_s, mask=mask, max_iter=MASKED_BUDGET,
+                tolerance=0.0, **MASKED_FIT))
+            ms = (time.perf_counter() - t0) * 1e3 / MASKED_BUDGET
+            conv, cs = counted(wrappers, lambda: cavi.fit_cavi(
+                Y_s, params, init_s, mask=mask, max_iter=200, **MASKED_FIT))
+        out[label] = dict(
+            ms_per_iter=ms, launches=c, stop_launches=cs,
+            dx=(fit.full().X_mean.cpu() - ref["X_mean"]).abs().max().item(),
+            elbo_rel=max_rel(fit.elbo_history[:MASKED_BUDGET], ref["elbo"]),
+            stop=(conv.n_iter, conv.converged))
+    with packed_mask_env(True):
+        t0 = time.perf_counter()
+        sm, c = counted(wrappers, lambda: smoothed.fit_cavi_smoothed(
+            Ys_s, params, warm_s, mask=mask, **MASKED_SMOOTHED))
+    out["masked smoothed"] = dict(
+        ms_per_iter=(time.perf_counter() - t0) * 1e3 / SMOOTHED_ITERS,
+        launches=c, elbo_rel=max_rel(sm.elbo_history[:SMOOTHED_ITERS],
+                                     refs["masked smoothed"]))
+    out["masked_collectives"] = count_iteration(
+        mesh, *NS_SHAPE, num_blocks=16, masked=True,
+        mixed_precision=True, diag_mode="stats")
+    return out
+
+
+def sharded_small_legs(mesh, wrappers, refs) -> dict:
+    """One rank's smaller legs in the same world: the seq sweep at the
+    demo shape, the masked Bernoulli and Poisson fits at n=1000, T=20,
+    r=2, and a Poisson fit killed at 8 of 16 iterations and resumed from
+    the sharded result's carry."""
+    from tame_torch.parallel import shard_fit_inputs
+
+    out = {}
+    Y, params, init = seq_inputs()
+    Y_s, init_s = shard_fit_inputs(mesh, Y.cpu(), init)
+    t0 = time.perf_counter()
+    seq, c = counted(wrappers, lambda: seq_fit(Y_s, params, init_s))
+    out["seq"] = dict(
+        launches=c, stop=(seq.n_iter, seq.converged),
+        plain_stop=refs["seq_stop"],
+        ms_per_iter=(time.perf_counter() - t0) * 1e3 / seq.n_iter,
+        elbo_rel=max_rel(seq.elbo_history[:min(seq.n_iter,
+                                                len(refs["seq"]))],
+                         refs["seq"][:seq.n_iter]))
+    for family in ("bernoulli", "poisson"):
+        Y, params, init, mask = family_sharded_inputs(family)
+        Y_s, init_s = shard_fit_inputs(mesh, Y.cpu(), init)
+        mask = mask.cpu()
+        ref = refs["family"][family]
+        t0 = time.perf_counter()
+        fit, c = counted(wrappers, lambda: family_sharded_fit(
+            family, Y_s, params, init_s, mask, max_iter=FAMILY_ITERS))
+        out[family] = dict(
+            launches=c,
+            ms_per_iter=(time.perf_counter() - t0) * 1e3 / FAMILY_ITERS,
+            dx=(fit.full().X_mean.cpu() - ref["X_mean"]).abs().max().item(),
+            elbo_rel=max_rel(fit.elbo_history[:FAMILY_ITERS], ref["elbo"]))
+    # Y_s, init_s and mask are the Poisson leg's
+    (one, head, tail), c = counted(wrappers, lambda: killed_sharded_poisson(
+        mesh, Y, Y_s, params, init_s, mask))
+    out["poisson resume"] = dict(
+        launches=c, bits=bool(
+            torch.equal(tail.full().X_mean, one.full().X_mean)
+            and torch.equal(tail.full().X_cov, one.full().X_cov)
+            and torch.equal(torch.cat([head.elbo_history[:RESUME_KILL],
+                                       tail.elbo_history[:RESUME_TOTAL
+                                                         - RESUME_KILL]]),
+                            one.elbo_history[:RESUME_TOTAL])))
+    return out
+
+
+def killed_sharded_poisson(mesh, Y, Y_s, params, init_s, mask):
+    """A sharded Poisson fit of RESUME_TOTAL iterations in one shot, and
+    the same killed after RESUME_KILL and resumed from the stopped fit's
+    state and ``resume_carry()``."""
+    from tame_torch.parallel import shard_fit_inputs
+
+    one = family_sharded_fit("poisson", Y_s, params, init_s, mask,
+                             max_iter=RESUME_TOTAL)
+    head = family_sharded_fit("poisson", Y_s, params, init_s, mask,
+                              max_iter=RESUME_KILL)
+    _, mid = shard_fit_inputs(mesh, Y.cpu(), head.full())
+    tail = family_sharded_fit("poisson", Y_s, params, mid, mask,
+                              max_iter=RESUME_TOTAL - RESUME_KILL,
+                              carry=head.resume_carry())
+    return one, head, tail
 
 
 def check_sharded_world(label: str, ranks: list, ref_stop: int) -> None:
@@ -2624,9 +2875,10 @@ def check_sharded_world(label: str, ranks: list, ref_stop: int) -> None:
                 f"{tag}: SMC {r['smc_dx']}, {r['smc_evidence_dx']}")
     require(len(stops) == 1 and next(iter(stops))[1],
             f"{label}: the ranks stopped apart or did not converge: {stops}")
+    check_sharded_legs(label, ranks)
     r0 = ranks[0]
     coll = r0["collectives_per_iteration"]
-    want = layout_bytes(2000, 50, 4, len(ranks), 1, 16)
+    want = layout_bytes(*NS_SHAPE, len(ranks), 1, 16)
     require(sum(v["bytes"] for v in coll.values()) == want,
             f"{label}: the collectives of one iteration are not the "
             f"layout's {want} bytes: {coll}")
@@ -2649,13 +2901,109 @@ def check_sharded_world(label: str, ranks: list, ref_stop: int) -> None:
     print(f"{label}: {json.dumps(PARALLEL[label])} on {CARD}", flush=True)
 
 
+def check_sharded_legs(label: str, ranks: list) -> None:
+    """The checks of the masked, seq and family legs on every rank of one
+    world: the fixed budgets within the sharded bounds, one stop on every
+    rank (printed beside the plain fit's, never gated on it: an ulp moves
+    a masked bf16 stop), the kernels' launches per iteration per rank and
+    the resumed Poisson fit's bits."""
+    from tame_torch.parallel.comm_analysis import layout_bytes
+
+    masked_world = {}
+    for name, packed in MASKED_PATHS:
+        for r in ranks:
+            leg, tag = r[name], f"{label}, rank {r['rank']}, {name}"
+            require(leg["dx"] < SHARDED_DX
+                    and leg["elbo_rel"] < SHARDED_ELBO_RTOL,
+                    f"{tag}: the fixed-budget fit is off the one-rank "
+                    f"fit's: {leg['dx']}, {leg['elbo_rel']}")
+            masked_launches(tag, leg["launches"], MASKED_BUDGET, packed)
+            masked_launches(f"{tag} to the stop", leg["stop_launches"],
+                            leg["stop"][0], packed)
+        stops = {r[name]["stop"] for r in ranks}
+        require(len(stops) == 1, f"{label}, {name}: the ranks stopped "
+                f"apart: {stops}")
+        masked_world[name] = {
+            "ms_per_iter": [r[name]["ms_per_iter"] for r in ranks],
+            "dx": max(r[name]["dx"] for r in ranks),
+            "elbo_rel": max(r[name]["elbo_rel"] for r in ranks),
+            "stop": ranks[0][name]["stop"]}
+    for r in ranks:
+        tag = f"{label}, rank {r['rank']}"
+        leg = r["masked smoothed"]
+        require(leg["elbo_rel"] <= SMOOTHED_ELBO_RTOL, f"{tag}: the masked "
+                f"smoothed ELBO is off: {leg['elbo_rel']}")
+        smoothed_launches(f"{tag}, masked smoothed", leg["launches"],
+                          SMOOTHED_ITERS)
+        seq = r["seq"]
+        require(seq["elbo_rel"] <= SEQ_SHARDED_RTOL
+                and seq["stop"] == tuple(seq["plain_stop"]),
+                f"{tag}: the sharded seq fit is off the plain fit: ELBO "
+                f"{seq['elbo_rel']}, stop {seq['stop']} against "
+                f"{seq['plain_stop']}")
+        n_seq = seq["stop"][0]
+        require(seq["launches"]["spd_solve_inv"] == 15 * 10 * n_seq
+                and seq["launches"]["logdet_spd"] == n_seq,
+                f"{tag}: the seq sweep did not launch K1 n T times and K2 "
+                f"once per iteration on every rank: {seq['launches']}")
+        for family in ("bernoulli", "poisson"):
+            leg = r[family]
+            require(leg["dx"] < SHARDED_DX
+                    and leg["elbo_rel"] < SHARDED_ELBO_RTOL,
+                    f"{tag}: the masked {family} fit is off the plain "
+                    f"fit's: {leg['dx']}, {leg['elbo_rel']}")
+            c = leg["launches"]
+            require(c["spd_solve_inv"] == FAMILY_ITERS
+                    and c["logdet_spd"] == FAMILY_ITERS,
+                    f"{tag}: the masked {family} fit did not launch K1 and "
+                    f"K2 once per iteration: {c}")
+        require(r["poisson resume"]["bits"], f"{tag}: the resumed sharded "
+                f"Poisson fit is not the one-shot fit's bits")
+        coll = r["masked_collectives"]
+        want = layout_bytes(*NS_SHAPE, len(ranks), 1, 16)
+        require(sum(v["bytes"] for v in coll.values()) == want,
+                f"{tag}: one masked iteration's collectives are not the "
+                f"layout's {want} bytes: {coll}")
+    r0 = ranks[0]
+    require(len({r["seq"]["stop"] for r in ranks}) == 1, f"{label}: the "
+            f"seq ranks stopped apart")
+    PARALLEL[f"{label}, masked and small legs"] = {
+        **masked_world,
+        "masked smoothed": {
+            "ms_per_iter": [r["masked smoothed"]["ms_per_iter"]
+                            for r in ranks],
+            "elbo_rel": max(r["masked smoothed"]["elbo_rel"]
+                            for r in ranks)},
+        "masked_collectives_per_iteration": r0["masked_collectives"],
+        "seq": {"stop": r0["seq"]["stop"],
+                "ms_per_iter": [r["seq"]["ms_per_iter"] for r in ranks],
+                "elbo_rel": max(r["seq"]["elbo_rel"] for r in ranks)},
+        **{f"{family} masked": {
+            "ms_per_iter": [r[family]["ms_per_iter"] for r in ranks],
+            "dx": max(r[family]["dx"] for r in ranks),
+            "elbo_rel": max(r[family]["elbo_rel"] for r in ranks)}
+           for family in ("bernoulli", "poisson")},
+        "poisson_resume_bit_for_bit": all(r["poisson resume"]["bits"]
+                                          for r in ranks),
+        "new_legs_s": [r["new_legs_s"] for r in ranks]}
+    print(f"{label}, masked and small legs: "
+          f"{json.dumps(PARALLEL[f'{label}, masked and small legs'])} on "
+          f"{CARD}", flush=True)
+
+
 def rank_launches(ranks: list) -> dict:
     """The launches of a spawned world's paths, summed over its ranks."""
     total = {}
     for r in ranks:
-        for key in ("budget_launches", "stop_launches",
-                    "smoothed_launches"):
-            for k, v in r[key].items():
+        counts = [r[key] for key in ("budget_launches", "stop_launches",
+                                     "smoothed_launches")]
+        counts += [r[leg][key] for leg, _ in MASKED_PATHS
+                   for key in ("launches", "stop_launches")]
+        counts += [r[leg]["launches"] for leg in (
+            "masked smoothed", "seq", "bernoulli", "poisson",
+            "poisson resume")]
+        for c in counts:
+            for k, v in c.items():
                 total[k] = total.get(k, 0) + v
     return total
 
@@ -2726,13 +3074,120 @@ def phase_references(one: dict, Y, params, init) -> dict:
             "smoothed_elbo": sm.elbo_history[:SMOOTHED_ITERS]}
 
 
+def phase_one_rank_masked(one: dict, Y, params, init) -> dict:
+    """Phase 39's mesh with 30 % of the dyads hidden: the production
+    flags through the bf16 einsum mask and through K5, each to its stop
+    beside the plain fit, bit for bit (means, ELBO history, stop); the
+    masked smoothed fit through K4 and K5 (10 iterations) beside the plain
+    one, bit for bit; then the fixed-budget fits the sharded worlds
+    match.  Each fit's launches are asserted."""
+    from tame_torch.inference import cavi, smoothed
+    from tame_torch.parallel import shard_smoothed_inputs
+
+    wrappers = kernel_wrappers()
+    mask = hidden_dyads(*NS_SHAPE[:2])
+    host_mask = mask.cpu()   # the sharded fits slice it, then move it
+    refs, report = {}, {}
+    for label, packed in MASKED_PATHS:
+        with packed_mask_env(packed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain, pc = launches_of(wrappers, lambda: cavi.fit_cavi(
+                Y, params, on_card(init), mask=mask, max_iter=200,
+                **MASKED_FIT))
+            t1 = time.perf_counter()
+            out, sc = launches_of(wrappers, lambda: cavi.fit_cavi(
+                one["Y_s"], params, one["init_s"], mask=host_mask,
+                max_iter=200, **MASKED_FIT))
+            t2 = time.perf_counter()
+            budget = cavi.fit_cavi(one["Y_s"], params, one["init_s"],
+                                   mask=host_mask, max_iter=MASKED_BUDGET,
+                                   tolerance=0.0, **MASKED_FIT)
+        n = plain.n_iter
+        full = out.full()
+        bits = bool(out.n_iter == n
+                    and torch.equal(full.X_mean, plain.X_mean)
+                    and torch.equal(full.X_cov, plain.X_cov)
+                    and torch.equal(out.elbo_history[:n],
+                                    plain.elbo_history[:n]))
+        report[label] = dict(stop=out.n_iter, plain_stop=n,
+                             converged=out.converged, bit_for_bit=bits,
+                             ms_per_iter=(t2 - t1) * 1e3 / out.n_iter,
+                             plain_ms_per_iter=(t1 - t0) * 1e3 / n)
+        require(bits, f"one-rank {label} fit is not the plain fit's bits: "
+                f"{report[label]}")
+        masked_launches(f"the plain {label} fit", pc, n, packed)
+        masked_launches(f"the one-rank {label} fit", sc, n, packed)
+        refs[label] = {"X_mean": budget.full().X_mean.cpu(),
+                       "elbo": budget.elbo_history[:MASKED_BUDGET],
+                       "stop": n}
+    warm = smoothed.warm_init_smoothed_state(Y, params)
+    Ys_s, warm_s = shard_smoothed_inputs(one["mesh"], Y, warm)
+    with packed_mask_env(True):
+        plain, pc = launches_of(wrappers, lambda: smoothed.fit_cavi_smoothed(
+            Y, params, warm, mask=mask, **MASKED_SMOOTHED))
+        out, sc = launches_of(wrappers, lambda: smoothed.fit_cavi_smoothed(
+            Ys_s, params, warm_s, mask=host_mask, **MASKED_SMOOTHED))
+    bits = bool(torch.equal(out.full().state.X_mean, plain.state.X_mean)
+                and torch.equal(out.elbo_history[:SMOOTHED_ITERS],
+                                plain.elbo_history[:SMOOTHED_ITERS]))
+    report["masked smoothed"] = dict(iterations=SMOOTHED_ITERS,
+                                     bit_for_bit=bits)
+    require(bits, "the one-rank masked smoothed fit is not the plain fit's "
+            "bits")
+    smoothed_launches("the plain masked smoothed fit", pc, SMOOTHED_ITERS)
+    smoothed_launches("the one-rank masked smoothed fit", sc,
+                      SMOOTHED_ITERS)
+    refs["masked smoothed"] = out.elbo_history[:SMOOTHED_ITERS]
+    PARALLEL["one NCCL rank, masked"] = report
+    print(f"n=2000 T=50 r=4, 30 % hidden, bf16 + stats, one-rank NCCL mesh "
+          f"beside the plain fits: {json.dumps(report)} on {CARD}",
+          flush=True)
+    return refs
+
+
+def phase_small_references() -> dict:
+    """The plain fits the sharded worlds' smaller legs match: the seq
+    sweep at the demo shape (K1 n T times per iteration) and the masked
+    Bernoulli and Poisson fits at n=1000, T=20, r=2."""
+    Y, params, init = seq_inputs()
+    seq = seq_fit(Y, params, on_card(init))
+    refs = {"seq": seq.elbo_history[:seq.n_iter],
+            "seq_stop": (seq.n_iter, seq.converged), "family": {}}
+    for family in ("bernoulli", "poisson"):
+        Y, params, init, mask = family_sharded_inputs(family)
+        fit = family_sharded_fit(family, Y, params, on_card(init), mask,
+                                 max_iter=FAMILY_ITERS)
+        refs["family"][family] = {"X_mean": fit.X_mean.cpu(),
+                                  "elbo": fit.elbo_history[:FAMILY_ITERS]}
+    return refs
+
+
 def run_script(module: str, *argv: str) -> str:
     """``python -m <module> --device cuda <argv>`` from the checkout."""
-    r = subprocess.run([sys.executable, "-m", module, "--device", "cuda",
-                        *argv], cwd=ROOT, capture_output=True, text=True,
-                       timeout=600)
-    require(r.returncode == 0, f"{module} failed:\n{r.stdout}\n{r.stderr}")
-    return r.stdout.strip().splitlines()[-1]
+    return run_scripts([(module, argv)])[0]
+
+
+def run_scripts(scripts: list) -> list:
+    """``python -m <module> --device cuda <argv>`` for each ``(module,
+    argv)``, all started together from the checkout; each must exit 0
+    within 600 s.  Returns their last output lines in order."""
+    procs = [subprocess.Popen([sys.executable, "-m", module, "--device",
+                               "cuda", *argv], cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for module, argv in scripts]
+    lines = []
+    try:
+        for (module, _), proc in zip(scripts, procs):
+            out, err = proc.communicate(timeout=600)
+            require(proc.returncode == 0, f"{module} failed:\n{out}\n{err}")
+            lines.append(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return lines
 
 
 def parallel_paths(drive, paths: list, nccl_leg: bool = False) -> None:
@@ -2753,6 +3208,18 @@ def parallel_paths(drive, paths: list, nccl_leg: bool = False) -> None:
             f"launch 16 K1 and 1 K2 per iteration each, K3 never: {c}")
     refs, _ = drive("references for the sharded worlds", timed_phase,
                     "references", phase_references, one, Y, params, init)
+    refs["masked"], c = drive(
+        "n=2000 one-rank NCCL mesh, masked (and the plain fits)",
+        timed_phase, "n=2000 one-rank NCCL mesh, masked",
+        phase_one_rank_masked, one, Y, params, init)
+    refs["masked smoothed"] = refs["masked"].pop("masked smoothed")
+    small, c = drive("references for the smaller sharded legs", timed_phase,
+                     "references, seq and families", phase_small_references)
+    refs.update(small)
+    require(c["spd_solve_inv"] == 15 * 10 * refs["seq_stop"][0]
+            + 2 * FAMILY_ITERS, f"the seq and family references did not "
+            f"launch K1 n T times per seq iteration and once per family "
+            f"iteration: {c}")
     del one, Y
     torch.cuda.empty_cache()
     worlds = [] if nccl_leg else [("two gloo ranks sharing the card", 2,
@@ -2777,19 +3244,29 @@ def parallel_paths(drive, paths: list, nccl_leg: bool = False) -> None:
         counts.setdefault("eta_contract", 0)
         print(f"launches, {label} (all ranks): {counts}", flush=True)
         paths.append(counts)
-    scripts = [("multihost_probe", ("--backend", "gloo")),
-               ("multihost_proof", ("--backend", "gloo"))]
     if nccl_leg:
+        # one after the other: scaling_eval times the NCCL world
         scripts = [("multihost_proof", ("--backend", "nccl", "--procs",
                                         str(procs))),
                    ("scaling_eval", ("--backend", "nccl", "--procs",
                                      str(procs)))]
-    for name, argv in scripts:
-        module = f"tame_torch.scripts.{name}"
-        line, _ = drive(module, timed_phase, module, run_script, module,
-                        *argv)
-        PARALLEL[name] = json.loads(line)
-        print(f"{module}: {line}", flush=True)
+        for name, argv in scripts:
+            module = f"tame_torch.scripts.{name}"
+            line, _ = drive(module, timed_phase, module, run_script, module,
+                            *argv)
+            PARALLEL[name] = json.loads(line)
+            print(f"{module}: {line}", flush=True)
+    else:
+        # the probe and the proof time nothing: both worlds at once
+        names = ("multihost_probe", "multihost_proof")
+        label = "tame_torch.scripts.multihost_probe and multihost_proof"
+        lines, _ = drive(label, timed_phase, label, run_scripts,
+                         [(f"tame_torch.scripts.{name}", ("--backend",
+                                                          "gloo"))
+                          for name in names])
+        for name, line in zip(names, lines):
+            PARALLEL[name] = json.loads(line)
+            print(f"tame_torch.scripts.{name}: {line}", flush=True)
     pcomm.destroy()
 
 
@@ -2826,7 +3303,14 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
+
+    def wall(label, t0):
+        """Each phase's wall time and the script's so far, host clock."""
+        now = time.perf_counter()
+        print(f"wall, {label}: {now - t0:.2f} s, {now - start:.1f} s since "
+              f"the start", flush=True)
+
     _ext.load()
     print(f"build: {time.perf_counter() - t0:.1f} s (build/tame_torch)")
     wrappers = {"spd_solve_inv": ch.spd_solve_inv_kernel,
@@ -2842,9 +3326,11 @@ def main(argv=None) -> int:
         returns (its result, the counts read just after)."""
         for w in wrappers.values():
             w.launches = 0
+        t0 = time.perf_counter()
         out = path(*args)
         counts = {k: w.launches for k, w in wrappers.items()}
         print(f"launches, {label}: {counts}")
+        wall(label, t0)
         paths.append(counts)
         return out, counts
 
@@ -2854,11 +3340,11 @@ def main(argv=None) -> int:
         return 0
 
     report = {name: {} for name in KERNELS}
-    phase_kernels(report)
-    phase_fused_fit(report)
-    phase_smoother_kernel(report)
-    phase_contract_kernels(report)
-    phase_eta_kernel(report)
+    for phase in (phase_kernels, phase_fused_fit, phase_smoother_kernel,
+                  phase_contract_kernels, phase_eta_kernel):
+        t0 = time.perf_counter()
+        phase(report)
+        wall(phase.__name__, t0)
 
     _, demo = drive("demo", phase_demo)
     _, good = drive("n=2000 Good SMF", phase_real_size)
@@ -2895,10 +3381,10 @@ def main(argv=None) -> int:
         if fit_mask is not None:
             require(res["mse_held"] < 2.0 * res["mse_obs"] + 0.05,
                     f"the {label} fit does not recover the held-out dyads")
-    # ms/iteration in turns (dense, einsum, K5, K5, einsum, dense, twice),
+    # ms/iteration in turns (dense, einsum, K5, K5, einsum, dense),
     # 40 iterations each, for the spread of one configuration's runs
     turns = {label: [] for label, _, _ in configs}
-    for label, fit_mask, packed in (configs + configs[::-1]) * 2:
+    for label, fit_mask, packed in configs + configs[::-1]:
         turns[label].append(masked_fit(model, mask, fit_mask, packed,
                                        max_iter=40, tolerance=0.0)
                             ["ms_per_iter"])

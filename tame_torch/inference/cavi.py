@@ -167,30 +167,45 @@ def precompute_diag_constants(Y: torch.Tensor) -> DiagConstants:
 
 
 def _data_mean_cross_terms(obs: ObsConstants, U: torch.Tensor,
-                           V: torch.Tensor, R_inv: torch.Tensor):
+                           V: torch.Tensor, R_inv: torch.Tensor,
+                           rows=slice(None)):
     """Data-mean cross terms ``A = sum y0_ij u_ij`` and ``B = sum y0_ij
     u_ji`` (``u_ij = U_i . V_j``) from one pass over W0: reciprocity makes
     ``W1 = W0'``, so ``s1 = sum U . (W0 V) = p A + q B`` and ``s3 = sum V
-    . (W0 U) = q A + p B`` ride one contraction against ``[V | U]``."""
+    . (W0 U) = q A + p B`` ride one contraction against ``[V | U]``.
+    ``obs`` may hold only the rows ``rows`` of the weights (a rank's):
+    the terms are then those rows' share of the sums."""
     p, q = R_inv[0, 0], R_inv[0, 1]
     r = U.shape[-1]
     out = _eta_contract(obs.W0, torch.cat([V, U], -1))
-    s1 = torch.sum(U * out[..., :r])
-    s3 = torch.sum(V * out[..., r:])
+    s1 = torch.sum(U[rows] * out[..., :r])
+    s3 = torch.sum(V[rows] * out[..., r:])
     denom = p * p - q * q
     return (p * s1 - q * s3) / denom, (p * s3 - q * s1) / denom
 
 
 def _residual_stats_from_moments(dc: DiagConstants, obs: ObsConstants,
                                  X_mean: torch.Tensor, r: int,
-                                 R_inv: torch.Tensor):
+                                 R_inv: torch.Tensor, rows=slice(None),
+                                 model_terms: bool = True):
     """``(sum_offdiag e0^2, sum_offdiag e0_ij e0_ji)`` with ``e0 = y0 -
     m``, ``m_ij = a_i + b_j + U_i . V_j``, expanded into data constants and
     global moments of the means: one W0 contraction
     (:func:`_data_mean_cross_terms`) and O(n T r^2) work, no O(n^2 T)
-    pass (the JAX function's algebra)."""
+    pass (the JAX function's algebra).
+
+    Under a mesh ``dc`` and ``obs`` hold the rows ``rows`` of a rank and
+    the data terms are their share; the model-side moments are functions
+    of the replicated means alone, so exactly one rank per time slice
+    adds them (``model_terms``), lest the mesh count them once a rank."""
     a, b, U, V = dyad_ops.split_state(X_mean, r)
-    A, B = _data_mean_cross_terms(obs, U, V, R_inv)
+    A, B = _data_mean_cross_terms(obs, U, V, R_inv, rows)
+    y_ab = torch.sum(a[rows] * dc.row_y0) + torch.sum(b[rows] * dc.col_y0)
+    y_abT = torch.sum(a[rows] * dc.col_y0) + torch.sum(b[rows] * dc.row_y0)
+    sq = dc.sum_y0_sq - 2.0 * (y_ab + A)
+    cross = dc.sum_y0_y0T - 2.0 * (y_abT + B)
+    if not model_terms:
+        return sq, cross
     n = a.shape[0]
     alpha, beta = a.sum(0), b.sum(0)                       # (T,)
     Sa2, Sb2, Sab = (a * a).sum(0), (b * b).sum(0), (a * b).sum(0)
@@ -210,50 +225,50 @@ def _residual_stats_from_moments(dc: DiagConstants, obs: ObsConstants,
     cross_mT = torch.sum(wV * sU) + torch.sum(zU * sV)
     SuuT = torch.sum(GVU * GVU.transpose(-1, -2))
     sum_m_mT = sum_ab_cross + 2.0 * cross_mT + SuuT - Smii2
-
-    y_ab = torch.sum(a * dc.row_y0) + torch.sum(b * dc.col_y0)
-    y_abT = torch.sum(a * dc.col_y0) + torch.sum(b * dc.row_y0)
-    sq = dc.sum_y0_sq - 2.0 * (y_ab + A) + sum_m_sq
-    cross = dc.sum_y0_y0T - 2.0 * (y_abT + B) + sum_m_mT
-    return sq, cross
+    return sq + sum_m_sq, cross + sum_m_mT
 
 
 def _masked_residual_stats(dc: DiagConstants, obs: ObsConstants,
                            X_mean: torch.Tensor, r: int, R_inv: torch.Tensor,
-                           mask):
+                           mask, rows=slice(None)):
     """Masked counterpart of :func:`_residual_stats_from_moments`: the
     residual statistics over OBSERVED dyads.  With ``Y`` zeroed at masked
     entries the data-side terms are as dense; the model-side moments
     become one mask contraction against a (4 + 5r + 2r^2)-column feature
-    panel, ``sum_j M_ij f(i) . g(j) = f(i) . (M g)_i``.
+    panel, ``sum_j M_ij f(i) . g(j) = f(i) . (M g)_i``.  Every term is a
+    sum over rows i, so ``dc``, ``obs`` and ``mask`` may hold only the
+    rows ``rows`` (a rank's): the statistics are then their share.
 
     CONTRACT: ``mask`` is symmetric (the cross-term re-summation uses it).
     """
-    a, b, U, V = dyad_ops.split_state(X_mean, r)
-    n, T = a.shape
-    A, B = _data_mean_cross_terms(obs, U, V, R_inv)
+    a_all, b_all, U_all, V = dyad_ops.split_state(X_mean, r)
+    n, T = a_all.shape
+    A, B = _data_mean_cross_terms(obs, U_all, V, R_inv, rows)
+    a, b, U = a_all[rows], b_all[rows], U_all[rows]
+    m = a.shape[0]
     y_ab = torch.sum(a * dc.row_y0) + torch.sum(b * dc.col_y0)
     y_abT = torch.sum(a * dc.col_y0) + torch.sum(b * dc.row_y0)
 
     VV = _outer(V, V).reshape(n, T, r * r)
-    OVU = _outer(V, U).reshape(n, T, r * r)
-    a1, b1 = a[..., None], b[..., None]
-    Z = torch.cat([torch.ones_like(a1), a1, b1, b1 * b1, U, V, a1 * V,
-                   b1 * V, b1 * U, VV, OVU], -1)           # (n, T, K)
-    C = _mask_contract(mask, Z)
+    OVU = _outer(V, U_all).reshape(n, T, r * r)
+    a1, b1 = a_all[..., None], b_all[..., None]
+    Z = torch.cat([torch.ones_like(a1), a1, b1, b1 * b1, U_all, V, a1 * V,
+                   b1 * V, b1 * U_all, VV, OVU], -1)       # (n, T, K)
+    C = _mask_contract(mask, Z)                           # (m, T, K)
     cnt, Ma, Mb, Mb2 = C[..., 0], C[..., 1], C[..., 2], C[..., 3]
     MU, MV, MaV, MbV, MbU = C[..., 4:4 + 5 * r].split(r, -1)
     MVV, MOVU = C[..., 4 + 5 * r:].split(r * r, -1)
 
-    UUo = _outer(U, U).reshape(n, T, r * r)
-    OUV = _outer(U, V).reshape(n, T, r * r)
+    UUo = _outer(U, U).reshape(m, T, r * r)
+    OUV = _outer(U, V[rows]).reshape(m, T, r * r)
     U_MV = torch.sum(U * MV, -1)
     sum_m_sq = torch.sum(a * a * cnt + 2.0 * a * Mb + Mb2 + 2.0 * a * U_MV
                          + 2.0 * torch.sum(U * MbV, -1)
                          + torch.sum(UUo * MVV, -1))
     sum_m_mT = torch.sum(a * Ma + 2.0 * a * b * cnt + b * Mb
-                         + a * torch.sum(V * MU, -1)
-                         + torch.sum(V * MbU, -1) + torch.sum(U * MaV, -1)
+                         + a * torch.sum(V[rows] * MU, -1)
+                         + torch.sum(V[rows] * MbU, -1)
+                         + torch.sum(U * MaV, -1)
                          + b * U_MV + torch.sum(OUV * MOVU, -1))
     sq = dc.sum_y0_sq - 2.0 * (y_ab + A) + sum_m_sq
     cross = dc.sum_y0_y0T - 2.0 * (y_abT + B) + sum_m_mT
@@ -272,6 +287,15 @@ class PackedMask(NamedTuple):
     blocks: torch.Tensor
 
 
+class PackedRows(NamedTuple):
+    """Mask rows in K5's int8 layout as stripes of any lengths
+    (:func:`tame_torch.ops.masked_contract.pack_rows`) whose rows, in
+    order, are the rows a contraction returns: under a mesh, a rank's
+    share of each phase."""
+
+    stripes: list
+
+
 def _packed_contract_all(pm: PackedMask, Z: torch.Tensor) -> torch.Tensor:
     """Full-mask partner contraction through K5: every block stripe,
     concatenated back to node order.  Z: (n, T, K)."""
@@ -284,9 +308,13 @@ def _packed_contract_all(pm: PackedMask, Z: torch.Tensor) -> torch.Tensor:
 
 def _mask_contract(mask, Z: torch.Tensor) -> torch.Tensor:
     """Masked partner contraction ``(m, T, K)``: a dense (m, n, T) mask
-    through :func:`_eta_contract`, a :class:`PackedMask` through K5."""
+    through :func:`_eta_contract`, a :class:`PackedMask` or the stripes of
+    a :class:`PackedRows` through K5."""
     if isinstance(mask, PackedMask):
         return _packed_contract_all(mask, Z)
+    if isinstance(mask, PackedRows):
+        return torch.cat([masked_contract.packed_rows_contract(s, Z)
+                          [:s.shape[1]] for s in mask.stripes if s.shape[1]])
     return _eta_contract(mask, Z)
 
 
@@ -739,20 +767,27 @@ def cavi_step_block(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
     return CaviState(X_mean=X_mean, X_cov=X_cov)
 
 
-def cavi_step_seq(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
-                  params: AMEParams, structure: str, lr: float) -> CaviState:
-    """Gauss-Seidel sweep in the reference's order: nodes in order, times
-    in order within a node, each update reading the freshest means.  Node
-    i's observation terms come from the state as it stands before node i;
-    step t then adds the prior coupling to the just-updated step t-1 and
-    the not yet updated step t+1, so the n T solves run one at a time (one
-    K1 launch each on the card).  Works on a copy of ``state``, updated in
-    place."""
-    n, T, d = state.X_mean.shape
+def node_obs_eta(obs: ObsConstants, i: int, U: torch.Tensor,
+                 V: torch.Tensor) -> torch.Tensor:
+    """Node ``i``'s (T, d) observation natural parameter from row ``i`` of
+    ``obs`` and the partners' means ``U``, ``V`` (n, T, r)."""
+    return torch.cat([obs.eta_a[i][:, None], obs.eta_b[i][:, None],
+                      torch.einsum("jt,jtr->tr", obs.W0[i], V),
+                      torch.einsum("jt,jtr->tr", obs.W1[i], U)], -1)
+
+
+def seq_sweep(X_mean: torch.Tensor, pri: PriorMatrices, params: AMEParams,
+              structure: str, lr: float, node_eta, keep_cov) -> None:
+    """The seq sweep on the means ``X_mean``, in place: nodes in order,
+    times in order within a node.  ``node_eta(i, U, V)`` gives node i's
+    (T, d) observation natural parameter from the state as it stands
+    before node i; step t then adds the prior coupling to the just-updated
+    step t-1 and the not yet updated step t+1 and solves (one K1 launch
+    each on the card); ``keep_cov(i, t, cov)`` takes the new covariance."""
+    n, T, d = X_mean.shape
     r = (d - 2) // 2
     solver = _SOLVERS[structure]
     prior_P = _prior_precision(pri, T)                        # (T, d, d)
-    X_mean, X_cov = state.X_mean.clone(), state.X_cov.clone()
     for i in range(n):
         _, _, U, V = dyad_ops.split_state(X_mean, r)
         Ui, Vi = U[i], V[i]                                   # (T, r)
@@ -761,9 +796,7 @@ def cavi_step_seq(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
             (_gram(U, U) - _outer(Ui, Ui))[None],
             (_gram(V, V) - _outer(Vi, Vi))[None],
             (_gram(V, U) - _outer(Vi, Ui))[None], params.R_inv)[0] + prior_P
-        eta_obs = torch.cat([obs.eta_a[i][:, None], obs.eta_b[i][:, None],
-                             torch.einsum("jt,jtr->tr", obs.W0[i], V),
-                             torch.einsum("jt,jtr->tr", obs.W1[i], U)], -1)
+        eta_obs = node_eta(i, U, V)
         for t in range(T):
             eta = eta_obs[t]
             if t > 0:
@@ -772,7 +805,21 @@ def cavi_step_seq(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
                 eta = eta + X_mean[i, t + 1] @ pri.Qinv_Phi
             mu_new, cov_new = solver(P[t], eta)
             X_mean[i, t] = lr * mu_new + (1.0 - lr) * X_mean[i, t]
-            X_cov[i, t] = lr * cov_new + (1.0 - lr) * X_cov[i, t]
+            keep_cov(i, t, cov_new)
+
+
+def cavi_step_seq(state: CaviState, obs: ObsConstants, pri: PriorMatrices,
+                  params: AMEParams, structure: str, lr: float) -> CaviState:
+    """Gauss-Seidel sweep in the reference's order (:func:`seq_sweep`),
+    each update reading the freshest means, so the n T solves run one at
+    a time.  Works on a copy of ``state``, updated in place."""
+    X_mean, X_cov = state.X_mean.clone(), state.X_cov.clone()
+
+    def keep_cov(i, t, cov_new):
+        X_cov[i, t] = lr * cov_new + (1.0 - lr) * X_cov[i, t]
+
+    seq_sweep(X_mean, pri, params, structure, lr,
+              lambda i, U, V: node_obs_eta(obs, i, U, V), keep_cov)
     return CaviState(X_mean=X_mean, X_cov=X_cov)
 
 
@@ -831,6 +878,7 @@ def warm_init_state(Y: torch.Tensor, params: AMEParams, *,
     averages divide by per-entry observed counts and row/col/grand means
     by observed-partner counts; masked entries of ``Y`` are never read.
     """
+    refuse_sharded(Y, "warm_init_state")
     n, _, T, _ = Y.shape
     d = params.Phi.shape[0]
     r = (d - 2) // 2
@@ -1030,6 +1078,39 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
                      last_elbo=float(rule.prev), pat_count=rule.pat)
 
 
+def check_fit_options(update_mode: str, diag_mode: str, mask,
+                      corrected: bool, mixed_precision: bool) -> None:
+    """The option checks of :func:`fit_cavi`, sharded or not."""
+    if diag_mode not in ("exact", "stats"):
+        raise ValueError(f"unknown diag_mode: {diag_mode!r}")
+    if mask is not None and update_mode not in ("jacobi", "block"):
+        raise ValueError(
+            "mask is supported with update_mode 'jacobi' or 'block'")
+    if corrected and update_mode == "seq":
+        raise ValueError(
+            "corrected=True is not supported with update_mode='seq' "
+            "(seq exists for reference-trajectory parity)")
+    if mixed_precision and update_mode == "seq":
+        raise ValueError(
+            "mixed_precision=True is not supported with update_mode='seq' "
+            "(seq exists for reference-trajectory parity)")
+    if update_mode not in ("jacobi", "block", "seq"):
+        raise ValueError(f"unknown update_mode: {update_mode!r}")
+
+
+def refuse_sharded(Y, entry: str) -> None:
+    """Raise where an entry point with no sharded engine is handed a
+    sharded ``Y`` (:func:`tame_torch.parallel.shard_fit_inputs`), before
+    anything reads it: a sharded value reads through to this rank's piece,
+    whose shape and indexing are not the whole network's."""
+    from tame_torch.parallel.mesh import Sharded
+
+    if isinstance(Y, Sharded):
+        raise NotImplementedError(
+            f"{entry} has no sharded engine yet (listed under ROADMAP A.9); "
+            f"pass the whole network as a tensor")
+
+
 def _sharded(Y, init) -> bool:
     """Whether a fit's inputs are sharded over a mesh (both, or neither:
     a mix raises ``TypeError``)."""
@@ -1091,8 +1172,10 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
 
     ``Y`` and ``init`` from :func:`tame_torch.parallel.shard_fit_inputs`
     run the fit sharded over the mesh's ranks
-    (:func:`tame_torch.parallel.sharded_cavi.fit_cavi_sharded`; never
-    K3) and return a :class:`~tame_torch.parallel.mesh.Sharded` result.
+    (:func:`tame_torch.parallel.sharded_cavi.fit_cavi_sharded`, every
+    option above but K3; ``mask`` the whole (n, n, T) mask, of which each
+    rank keeps its rows) and return a
+    :class:`~tame_torch.parallel.mesh.Sharded` result.
     """
     if _sharded(Y, init):
         from tame_torch.parallel.sharded_cavi import fit_cavi_sharded
@@ -1105,24 +1188,11 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
             mixed_precision=mixed_precision, diag_mode=diag_mode,
             fused=fused, carry_elbo=carry_elbo,
             carry_patience=carry_patience, mask=mask)
-    if diag_mode not in ("exact", "stats"):
-        raise ValueError(f"unknown diag_mode: {diag_mode!r}")
+    check_fit_options(update_mode, diag_mode, mask, corrected,
+                      mixed_precision)
     if mask is not None:
-        if update_mode not in ("jacobi", "block"):
-            raise ValueError(
-                "mask is supported with update_mode 'jacobi' or 'block'")
         fused = False  # K3 assembles complete-network statistics
         mask = gated_mask(mask, Y)
-    if corrected and update_mode == "seq":
-        raise ValueError(
-            "corrected=True is not supported with update_mode='seq' "
-            "(seq exists for reference-trajectory parity)")
-    if mixed_precision and update_mode == "seq":
-        raise ValueError(
-            "mixed_precision=True is not supported with update_mode='seq' "
-            "(seq exists for reference-trajectory parity)")
-    if update_mode not in ("jacobi", "block", "seq"):
-        raise ValueError(f"unknown update_mode: {update_mode!r}")
     buf = history_buffer(max_iter)
     n, _, T, _ = Y.shape
     d = init.X_mean.shape[-1]

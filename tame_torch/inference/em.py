@@ -285,6 +285,7 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
     ELBO per EM iteration) and the learned scalars (``phi_mult``, the last
     latent dimension's rate, for non-scalar ``phi_structure``).
     """
+    cavi.refuse_sharded(Y, "fit_em")
     if isinstance(family, str):
         if family not in ("gaussian", "bernoulli", "poisson"):
             raise ValueError(f"unknown family {family!r}; choose from "

@@ -43,6 +43,7 @@ def exact_elbo(Y: torch.Tensor, params: AMEParams, state: SmoothedState,
     and the variance corrections sum over the same pairs.  (The JAX
     function zeroes it for the corrections only; the two agree on every
     zero-diagonal mask.)"""
+    cavi.refuse_sharded(Y, "exact_elbo")
     pri = cavi.precompute_priors(params)
     if mask is not None:
         mask = cavi.gated_mask(mask, Y)

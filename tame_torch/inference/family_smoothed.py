@@ -66,6 +66,7 @@ def warm_init_smoothed_family(Y: torch.Tensor, params: AMEParams, family,
     predictor (``4 (y - 1/2)`` for Bernoulli, ``log(y + 1/2)`` for
     Poisson, a custom family's ``warm_transform(Y)`` if it declares one,
     else ``Y``) through the Gaussian closed-form warm start."""
+    cavi.refuse_sharded(Y, "warm_init_smoothed_family")
     if family == "bernoulli":
         Z = 4.0 * (Y - 0.5)
     elif family == "poisson":
@@ -135,6 +136,7 @@ def fit_smoothed_family(Y: torch.Tensor, params: AMEParams,
     time-major (T, n, n) tensors); ``mask``: optional (n, n, T)
     observation gate (hidden dyads are never read).  One K4 launch per
     iteration on the card."""
+    cavi.refuse_sharded(Y, "fit_smoothed_family")
     family = _resolve_family(family)
     fi = family_inputs(Y, mask)
     params = params.to(Y.device, Y.dtype)

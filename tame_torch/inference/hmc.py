@@ -72,12 +72,63 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def value_and_grad(logdensity_fn: Callable, x: torch.Tensor):
     """``(logdensity_fn(x), its gradient)`` per chain, detached: one
-    autograd pass of the summed log densities."""
+    autograd pass of the summed log densities (a
+    :class:`GraphedLogDensity` replays its captured pass instead)."""
+    if isinstance(logdensity_fn, GraphedLogDensity):
+        return logdensity_fn.value_and_grad(x)
+    return _autograd_value_and_grad(logdensity_fn, x)
+
+
+def _autograd_value_and_grad(logdensity_fn: Callable, x: torch.Tensor):
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         logp = logdensity_fn(xg)
         grad, = torch.autograd.grad(logp.sum(), xg)
     return logp.detach(), grad
+
+
+class GraphedLogDensity:
+    """A log density whose :func:`value_and_grad` on the card is one CUDA
+    graph per input shape: the autograd pass is captured at its first call
+    at that shape (after three eager passes on a side stream) and replayed
+    after, so a gradient is one launch where the eager pass issues ~110,
+    each paying the host's launch cost.  The replay runs the captured
+    kernels on a static copy of the input; its outputs are cloned, since
+    the next replay overwrites them.  Called directly, or given a CPU
+    tensor, it is the wrapped function, eager.  ``fn`` must not read the
+    host or draw random numbers (a captured graph replays neither)."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graphs: dict = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+    def value_and_grad(self, x: torch.Tensor):
+        if not x.is_cuda:
+            return _autograd_value_and_grad(self.fn, x)
+        key = (tuple(x.shape), x.dtype, x.device)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(x)
+        graph, x_in, logp, grad = self.graphs[key]
+        x_in.copy_(x)
+        graph.replay()
+        return logp.clone(), grad.clone()
+
+    def _capture(self, x: torch.Tensor):
+        x_in = x.detach().clone()
+        main = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                _autograd_value_and_grad(self.fn, x_in)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logp, grad = _autograd_value_and_grad(self.fn, x_in)
+        return graph, x_in, logp, grad
 
 
 def _leapfrog(logdensity_fn: Callable, position: torch.Tensor,

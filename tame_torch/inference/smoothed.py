@@ -107,6 +107,7 @@ def warm_init_smoothed_state(Y: torch.Tensor, params: AMEParams,
     :func:`tame_torch.inference.cavi.warm_init_state` (``probe`` /
     ``generator`` as there) with the smoothed family's deterministic
     covariances."""
+    cavi.refuse_sharded(Y, "warm_init_smoothed_state")
     warm = cavi.warm_init_state(Y, params, structure="full",
                                 obs_mask=obs_mask, probe=probe,
                                 generator=generator)

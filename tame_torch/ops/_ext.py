@@ -16,7 +16,8 @@ import pathlib
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tame_torch"
 SOURCES = ("binding.cpp", "spd.cu", "fused_fit.cu", "fused_smoother.cu",
-           "masked_contract.cu", "dual_contract.cu", "eta_contract.cu")
+           "fused_smoother_48.cu", "masked_contract.cu", "dual_contract.cu",
+           "eta_contract.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
 

@@ -69,6 +69,23 @@ def pack_mask(mask: torch.Tensor, num_blocks: int) -> torch.Tensor:
     return out
 
 
+def pack_rows(mask: torch.Tensor, rows) -> list:
+    """Pack row slices of an (m, n, T) 0/1 mask as K5 stripes: one
+    ``(T, len, n_pad) int8`` stripe per slice of ``rows`` (any lengths, an
+    empty one included), laid out as an entry of :func:`pack_mask`, on
+    the mask's device.  The stripes of ``num_blocks`` equal slices that
+    tile n are :func:`pack_mask`'s blocks."""
+    n_pad = _pad_to(mask.shape[1], COL_ALIGN)
+    stripes = []
+    for sl in rows:
+        part = mask[sl].to(torch.int8).permute(2, 0, 1)      # (T, len, n)
+        out = torch.zeros(part.shape[:2] + (n_pad,), dtype=torch.int8,
+                          device=mask.device)
+        out[..., :part.shape[2]] = part
+        stripes.append(out)
+    return stripes
+
+
 def _check_stripe(Mp: torch.Tensor, Z: torch.Tensor) -> None:
     T, _, n_pad = Mp.shape
     n, TZ, _ = Z.shape

@@ -25,9 +25,13 @@ _F32 = 4
 def count_iteration(mesh, n: int, T: int, r: int, *,
                     structure: str = "full", update_mode: str = "block",
                     num_blocks: Optional[int] = None,
-                    diag_mode: str = "exact") -> Dict[str, Dict[str, int]]:
+                    diag_mode: str = "exact", masked: bool = False,
+                    mixed_precision: bool = False
+                    ) -> Dict[str, Dict[str, int]]:
     """This rank's collectives (``{kind: {"count", "bytes"}}``) in one
-    iteration of the sharded ``fit_cavi`` on ``mesh`` at (n, T, r)."""
+    iteration of the sharded ``fit_cavi`` on ``mesh`` at (n, T, r), with
+    every dyad observed under a mask when ``masked`` (the mask's counts
+    are all-reduced before the loop, so they are not the iteration's)."""
     from tame_torch.config import ModelConfig
     from tame_torch.inference import cavi
     from tame_torch.models import build_params
@@ -38,13 +42,15 @@ def count_iteration(mesh, n: int, T: int, r: int, *,
     init = cavi.init_state(torch.Generator().manual_seed(0), n, T, params.d,
                            structure, 0.1, 0.5)
     Y = torch.zeros(()).expand(n, n, T, 2)   # sliced per rank, no copy
+    mask = torch.ones(()).expand(n, n, T) if masked else None
     Y_s, init_s = shard_fit_inputs(mesh, Y, init)
     stats = []
     for iters in (1, 2):
         mesh.comm.reset()
         cavi.fit_cavi(Y_s, params, init_s, structure=structure,
                       update_mode=update_mode, num_blocks=num_blocks,
-                      diag_mode=diag_mode, max_iter=iters, tolerance=0.0)
+                      diag_mode=diag_mode, mixed_precision=mixed_precision,
+                      mask=mask, max_iter=iters, tolerance=0.0)
         stats.append(mesh.comm.stats())
     one, two = stats
     return {k: {f: two[k][f] - one.get(k, {}).get(f, 0)

@@ -294,6 +294,23 @@ def _place(x, mesh: Mesh, idx: tuple) -> torch.Tensor:
     return t[idx].contiguous().to(mesh.device, torch.float32)
 
 
+def place_mask(Y: Sharded, mask) -> torch.Tensor:
+    """This rank's piece of a whole (n, n, T) observation mask (a host or
+    device array; 1 = observed, symmetric), indexed as ``Y``'s piece:
+    its rows and time slice, every partner.  Sliced before it moves to
+    the rank's device, so no rank holds the whole mask there.  The
+    entries of the rank's own dyads (i, i) are zeroed: the rows are not
+    the first of the network, so the diagonal is where a row's id meets
+    the partner's."""
+    n, T = Y.sizes["nodes"], Y.sizes["time"]
+    rows = Y.mesh.piece("nodes", n)
+    ts = Y.mesh.piece("time", T) if Y.spec[2] == "time" else slice(None)
+    m = _place(mask, Y.mesh, (rows, slice(None), ts))
+    ids = torch.arange(n, device=m.device)
+    off = (ids[rows][:, None] != ids[None, :]).to(m.dtype)
+    return m * off[:, :, None]
+
+
 def shard_fit_inputs(mesh: Mesh, Y, state):
     """Place CAVI (and Bernoulli, Poisson) fit inputs on the mesh:
     ``(Y_s, state_s)``, this rank's rows and time slice of ``Y`` (n, n, T,

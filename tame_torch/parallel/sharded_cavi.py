@@ -9,7 +9,8 @@ So each rank keeps:
 
 * its rows and time slice of W0 and W1 (placed by
   :func:`~tame_torch.parallel.mesh.shard_fit_inputs`; rows go to ranks
-  cyclically) and of the covariances;
+  cyclically), of the observation mask (placed by
+  :func:`~tame_torch.parallel.mesh.place_mask`) and of the covariances;
 * every node's means, replicated.  The partner statistics, the prior's
   neighbour means at t +- 1 (no halo) and the residuals are computed from
   them with no collective.
@@ -21,23 +22,41 @@ launch (one K4 launch on its rows in the smoothed fit), then one padded
 all-gather over the mesh hands every rank the block's new means, so each
 phase reads the freshest global means, as the single-device loop does.  A
 Jacobi sweep is one phase.  The ELBO's sums (the residual sums of the
-rank's rows, its covariance traces, prior terms and entropy, K2 on its
-own factors) are all-reduced as one vector, so every rank applies the
-stopping rule to the same value and stops at the same iteration.  The
+rank's rows, its weighted covariance traces, prior terms and entropy, K2
+on its own factors) are all-reduced as one vector, so every rank applies
+the stopping rule to the same value and stops at the same iteration.  The
 host reads that value once per iteration; the block phases read nothing
 back (gloo on a card stages each collective through the host, which
 synchronises).
 
-Per iteration a rank moves ``nodes x time`` padded pieces of the new means
-(``ceil(bs / nodes) x ceil(T / time) x d`` floats each per block phase)
-and one all-reduce of 6 floats per ELBO; no observation-sized tensor ever
-moves.  With one rank the arithmetic is the single-device loop's; with
-rows split, the residual cross term reads the reciprocal component
-``Y[..., 1]`` in place of the transposed rows (the same numbers).
+Every option of the plain fits runs sharded, each on the plain loop's
+functions applied to the rank's rows:
 
-Not sharded (``NotImplementedError``, ROADMAP A.8's remainder): masks,
-``mixed_precision``, ``diag_mode="stats"``, ``TAME_PACKED_MASK=1`` and
-``update_mode="seq"``.  K3 never runs: ``fused=True`` raises.
+* ``mask``: the rank's mask rows give its masked partner sums (one
+  contraction of its share of each phase against the replicated panel);
+  the observed dyad-times and the MSE's count are all-reduced once,
+  before the loop.  Under ``TAME_PACKED_MASK=1`` the rank packs its share
+  of every phase once as a K5 stripe (62 or 63 rows at n=2000, bs=125 on
+  two ranks; all its rows in a Jacobi sweep) and launches K5 where the
+  plain fit does.
+* ``mixed_precision``: the rank's weights (and dense mask) in bf16.
+* ``diag_mode="stats"``: the data terms are row-local under the
+  reciprocal layout (``sum y0_ij y0_ji`` is ``sum Y0 Y1`` over the rank's
+  rows, a node's column sum its row sum of ``Y[..., 1]``); the dense
+  expansion's model-side moments read only the replicated means, so one
+  rank per time slice adds them.
+* ``update_mode="seq"``: node by node, each node's observation natural
+  parameter all-gathered from its owner's time ranks, then its T solves
+  run on every rank (K1 at B=1), so the means stay replicated.
+
+Per iteration a rank moves ``nodes x time`` padded pieces of the new means
+(``ceil(bs / nodes) x ceil(T / time) x d`` floats each per block phase;
+``n`` pieces of ``ceil(T / time) x d`` in a seq sweep) and one all-reduce
+of 6 floats per ELBO; no observation-sized tensor ever moves.  With one
+rank the arithmetic is the single-device loop's; with rows split, the
+residual cross term reads the reciprocal component ``Y[..., 1]`` in place
+of the transposed rows (the same numbers).  K3 never runs: ``fused=True``
+raises.
 """
 
 from __future__ import annotations
@@ -48,28 +67,20 @@ import torch
 from tame_torch.inference import cavi
 from tame_torch.inference import smoothed as sm
 from tame_torch.ops import dyad as dyad_ops
+from tame_torch.ops import masked_contract
 from tame_torch.parallel.mesh import (
     Sharded,
     cov_sharding,
     gather,
+    place_mask,
     slice_len,
     state_sharding,
 )
 
-_TODO = "listed under ROADMAP A.8 for a later port"
 
-
-def refuse(mask, mixed_precision: bool = False, diag_mode: str = "exact",
-           update_mode: str = "jacobi", fused="auto") -> None:
-    """The options a sharded fit does not take."""
-    for on, what in ((mask is not None, "mask="),
-                     (mixed_precision, "mixed_precision=True"),
-                     (diag_mode == "stats", 'diag_mode="stats"'),
-                     (cavi.packed_mask_requested(), "TAME_PACKED_MASK=1"),
-                     (update_mode == "seq", 'update_mode="seq"')):
-        if on:
-            raise NotImplementedError(
-                f"a sharded fit with {what} is not ported ({_TODO})")
+def refuse(fused) -> None:
+    """The one option a sharded fit does not take: K3 runs on one device's
+    whole tensors, never under a mesh."""
     if fused is True:
         raise ValueError("fused=True: K3 runs on one device's tensors, "
                          "never under a mesh")
@@ -116,9 +127,9 @@ class Geometry:
 
 
 def phases(n: int, update_mode: str, num_blocks):
-    """The node ranges updated in turn: one for Jacobi, the blocks for
-    block Gauss-Seidel."""
-    if update_mode == "jacobi":
+    """The node ranges updated in turn: the blocks for block Gauss-Seidel,
+    else one (a Jacobi sweep; a seq sweep's rows)."""
+    if update_mode != "block":
         return [(0, n)]
     if n % num_blocks != 0:
         raise ValueError(f"num_blocks={num_blocks} must divide n={n}")
@@ -132,26 +143,101 @@ def default_blocks(n: int, update_mode: str, num_blocks):
     return num_blocks
 
 
+def rank_inputs(Y: Sharded, R_inv: torch.Tensor, mask, geo: Geometry,
+                steps, *, mixed_precision: bool,
+                diag_mode: str) -> cavi.FitInputs:
+    """:func:`tame_torch.inference.cavi.fit_inputs` on this rank's piece:
+    its weights, stats constants and mask rows (the mask placed by
+    :func:`~tame_torch.parallel.mesh.place_mask`; packed as one K5 stripe
+    per phase under ``TAME_PACKED_MASK=1``), with the whole network's
+    observed dyad-times and MSE count, all-reduced."""
+    m = None if mask is None else place_mask(Y, mask)
+    fi = cavi.fit_inputs(Y.local, R_inv, m, mixed_precision=mixed_precision,
+                         diag_mode="exact", packed_mask=False, num_blocks=1)
+    if diag_mode == "stats" and geo.nodes == 1:
+        fi = fi._replace(dc=cavi.precompute_diag_constants(fi.Y))
+    elif diag_mode == "stats":
+        y0, y1 = fi.Y[..., 0], fi.Y[..., 1]
+        fi = fi._replace(dc=cavi.DiagConstants(
+            sum_y0_sq=torch.sum(y0 * y0), sum_y0_y0T=torch.sum(y0 * y1),
+            row_y0=y0.sum(1), col_y0=y1.sum(1)))
+    if m is None:
+        return fi._replace(mse_norm=geo.n * (geo.n - 1) * geo.T)
+    n_obs, total = Y.mesh.comm.all_reduce(
+        torch.stack([fi.mask_stats[0], m.sum()]), "mesh")
+    if cavi.packed_mask_requested():
+        fi = fi._replace(mask_c=cavi.PackedRows(masked_contract.pack_rows(
+            m, [geo.local(geo.share(lo, hi)) for lo, hi in steps])))
+    return fi._replace(mask_stats=(n_obs, fi.mask_stats[1]),
+                       mse_norm=torch.clamp(total, min=1.0))
+
+
+def phase_contract(fi: cavi.FitInputs, k: int, loc: slice):
+    """The masked partner contraction of this rank's share ``loc`` of
+    phase ``k`` (None without a mask): its K5 stripe, or its rows of the
+    dense mask through ``cavi._eta_contract``."""
+    if fi.mask is None:
+        return None
+    if isinstance(fi.mask_c, cavi.PackedRows):
+        stripe = fi.mask_c.stripes[k]
+        return lambda Z: masked_contract.packed_rows_contract(
+            stripe, Z)[:stripe.shape[1]]
+    rows = fi.mask_c[loc]
+    return lambda Z: cavi._eta_contract(rows, Z)
+
+
 def residual_partials(Yl: torch.Tensor, X: torch.Tensor, geo: Geometry,
-                      r: int):
+                      r: int, mask=None):
     """``(sq, cross)`` of :func:`tame_torch.ops.dyad.residual_stats_from_fwd`
-    over this rank's rows and time slice: ``e0[i, j] = y_ij - m_ij`` from
-    ``Yl[..., 0]``; its partner ``e0[j, i]`` is a transpose where the rank
-    holds every row, else ``y_ji - m_ji`` from the reciprocal component
-    ``Yl[..., 1]``."""
+    over this rank's rows and time slice (its observed dyads under
+    ``mask``, its rows of a symmetric zero-diagonal mask): ``e0[i, j] =
+    y_ij - m_ij`` from ``Yl[..., 0]``; its partner ``e0[j, i]`` is a
+    transpose where the rank holds every row, else ``y_ji - m_ji`` from
+    the reciprocal component ``Yl[..., 1]``."""
     a, b, U, V = dyad_ops.split_state(X[:, geo.ts], r)
     rows = geo.rows
     fwd = (a[rows][:, None, :] + b[None, :, :]
            + torch.einsum("...itr,...jtr->...ijt", U[rows], V))
-    ids = torch.arange(geo.n, device=Yl.device)
-    off = (ids[None, :] != ids[rows][:, None]).to(Yl.dtype)[..., None]
-    e0 = (Yl[..., 0] - fwd) * off
+    if mask is None:
+        ids = torch.arange(geo.n, device=Yl.device)
+        mask = (ids[None, :] != ids[rows][:, None]).to(Yl.dtype)[..., None]
+    e0 = (Yl[..., 0] - fwd) * mask
     if geo.nodes == 1:
         return torch.sum(e0 * e0), torch.sum(e0 * e0.transpose(0, 1))
     bwd = (a[None, :, :] + b[rows][:, None, :]
            + torch.einsum("...jtr,...itr->...ijt", U, V[rows]))
-    e1 = (Yl[..., 1] - bwd) * off
+    e1 = (Yl[..., 1] - bwd) * mask
     return torch.sum(e0 * e0), torch.sum(e0 * e1)
+
+
+def rank_residual_stats(fi: cavi.FitInputs, X: torch.Tensor, geo: Geometry,
+                        r: int, R_inv: torch.Tensor, diag_mode: str):
+    """This rank's share of :func:`tame_torch.inference.cavi.residual_stats`
+    (summed over the mesh, the whole network's)."""
+    if diag_mode == "stats" and fi.mask is not None:
+        return cavi._masked_residual_stats(fi.dc, fi.obs, X[:, geo.ts], r,
+                                           R_inv, fi.mask_c, geo.rows)
+    if diag_mode == "stats":
+        return cavi._residual_stats_from_moments(
+            fi.dc, fi.obs, X[:, geo.ts], r, R_inv, geo.rows,
+            model_terms=geo.k == 0)
+    return residual_partials(fi.Y, X, geo, r, fi.mask)
+
+
+def weighted_trace(fi: cavi.FitInputs, X_cov: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the structured trace correction's sum: its
+    covariance traces, weighted by the observed partners under a mask."""
+    tr = torch.diagonal(X_cov, dim1=-2, dim2=-1).sum(-1)
+    return torch.sum(tr) if fi.mask is None else torch.sum(
+        fi.mask_stats[1] * tr)
+
+
+def likelihood_counts(fi: cavi.FitInputs, n: int, T: int, wtr):
+    """``(n_dyads, wsum)`` of the ELBO from the all-reduced weighted trace:
+    as ``cavi._elbo_from_quad`` computes them."""
+    if fi.mask is None:
+        return n * (n - 1) // 2 * T, (n - 1) * wtr
+    return fi.mask_stats[0], wtr
 
 
 def prior_partials(params, pri: cavi.PriorMatrices, Xr: torch.Tensor,
@@ -190,6 +276,36 @@ def _check(Y, init) -> None:
         raise ValueError("Y and the initial state lie on different meshes")
 
 
+def seq_sweep(X: torch.Tensor, X_cov: torch.Tensor, obs: cavi.ObsConstants,
+              pri: cavi.PriorMatrices, params, structure: str, lr: float,
+              geo: Geometry) -> None:
+    """:func:`tame_torch.inference.cavi.seq_sweep` on the replicated means
+    ``X`` and this rank's covariances ``X_cov``, in place.  Node i's
+    observation natural parameter needs row i of the weights, which only
+    its owner's time ranks hold: they compute their time pieces and one
+    padded all-gather hands every rank the whole (T, d).  Every rank then
+    runs node i's T prior-coupled solves (one K1 launch of one system
+    each, as the plain sweep), so the means stay replicated; the owner
+    keeps the covariances of its time slice."""
+    ts, got = geo.ts, torch.empty_like(X)
+
+    def node_eta(i, U, V):
+        if i % geo.nodes == geo.k:
+            piece = cavi.node_obs_eta(obs, i // geo.nodes, U[:, ts],
+                                      V[:, ts])[None]
+        else:
+            piece = X.new_zeros(0, slice_len(ts, geo.T), X.shape[-1])
+        geo.gather_means(got, piece, i, i + 1)
+        return got[i]
+
+    def keep_cov(i, t, cov_new):
+        if i % geo.nodes == geo.k and ts.start <= t < ts.stop:
+            li, lt = i // geo.nodes, t - ts.start
+            X_cov[li, lt] = lr * cov_new + (1.0 - lr) * X_cov[li, lt]
+
+    cavi.seq_sweep(X, pri, params, structure, lr, node_eta, keep_cov)
+
+
 def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
                      update_mode: str, max_iter: int, learning_rate,
                      tolerance, patience: int, num_blocks, corrected: bool,
@@ -198,11 +314,12 @@ def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
                      mask) -> Sharded:
     """:func:`tame_torch.inference.cavi.fit_cavi` on inputs from
     :func:`~tame_torch.parallel.mesh.shard_fit_inputs` (see the module
-    docstring).  The result holds this rank's ``X_mean``/``X_cov`` pieces;
-    ``full()`` gathers a plain ``FitResult``."""
-    refuse(mask, mixed_precision, diag_mode, update_mode, fused)
-    if update_mode not in ("jacobi", "block"):
-        raise ValueError(f"unknown update_mode: {update_mode!r}")
+    docstring); ``mask`` is the whole (n, n, T) mask.  The result holds
+    this rank's ``X_mean``/``X_cov`` pieces; ``full()`` gathers a plain
+    ``FitResult``."""
+    refuse(fused)
+    cavi.check_fit_options(update_mode, diag_mode, mask, corrected,
+                           mixed_precision)
     _check(Y, init)
     mesh, comm = Y.mesh, Y.mesh.comm
     n, T = Y.sizes["nodes"], Y.sizes["time"]
@@ -210,7 +327,15 @@ def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
     r = (d - 2) // 2
     geo = Geometry(mesh, n, T)
     params = params.to(mesh.device)
-    obs = cavi.precompute_obs_constants(Y.local, params.R_inv)
+    steps = phases(n, update_mode, default_blocks(n, update_mode,
+                                                  num_blocks))
+    fi = rank_inputs(Y, params.R_inv, mask, geo, steps,
+                     mixed_precision=mixed_precision, diag_mode=diag_mode)
+    obs = fi.obs
+    shares = [(geo.share(lo, hi), geo.local(geo.share(lo, hi)))
+              for lo, hi in steps]
+    contracts = [phase_contract(fi, k, loc)
+                 for k, (_, loc) in enumerate(shares)]
     pri = cavi.precompute_priors(params)
     prior_P = cavi._prior_precision(pri, T)[geo.ts][None]
     solver = cavi._SOLVERS[structure]
@@ -218,44 +343,46 @@ def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
     lr = float(learning_rate)
     X = replicated_means(init)
     X_cov = init.local.X_cov.clone()
-    steps = phases(n, update_mode, default_blocks(n, update_mode,
-                                                  num_blocks))
     buf = cavi.history_buffer(max_iter)
     eh = np.full(buf, np.nan, np.float32)
     mh = np.full(buf, np.nan, np.float32)
     rule = cavi._StopRule(carry_elbo, carry_patience, tolerance, patience)
     it = 0
     while it < max_iter and rule.running:
-        for lo, hi in steps:
-            rows = geo.share(lo, hi)
-            loc = geo.local(rows)
-            P, eta = cavi.rows_obs_terms(
-                X[:, geo.ts], rows, obs.W0[loc], obs.W1[loc], obs.eta_a[loc],
-                obs.eta_b[loc], params.R_inv, corrected)
-            eta = eta + cavi._prior_nat_param(pri, X[rows])[:, geo.ts]
-            new = X[rows, geo.ts]
-            if P.shape[0]:  # no row here of a block smaller than nodes
-                mu_new, cov_new = solver(P + prior_P, eta)
-                new = lr * mu_new + (1.0 - lr) * new
-                X_cov[loc] = lr * cov_new + (1.0 - lr) * X_cov[loc]
-            geo.gather_means(X, new, lo, hi)
+        if update_mode == "seq":
+            seq_sweep(X, X_cov, obs, pri, params, structure, lr, geo)
+        else:
+            for (lo, hi), (rows, loc), contract in zip(steps, shares,
+                                                       contracts):
+                new = X[rows, geo.ts]
+                if new.shape[0]:  # no row here of a block smaller than nodes
+                    P, eta = cavi.rows_obs_terms(
+                        X[:, geo.ts], rows, obs.W0[loc], obs.W1[loc],
+                        obs.eta_a[loc], obs.eta_b[loc], params.R_inv,
+                        corrected, contract)
+                    eta = eta + cavi._prior_nat_param(pri, X[rows])[:, geo.ts]
+                    mu_new, cov_new = solver(P + prior_P, eta)
+                    new = lr * mu_new + (1.0 - lr) * new
+                    X_cov[loc] = lr * cov_new + (1.0 - lr) * X_cov[loc]
+                geo.gather_means(X, new, lo, hi)
         elbo = None
         if (it + 1) % elbo_every == 0 or it + 1 == max_iter:
             own = cavi.CaviState(X[geo.rows, geo.ts], X_cov)
-            sq, cross = residual_partials(Y.local, X, geo, r)
-            tr = torch.diagonal(X_cov, dim1=-2, dim2=-1).sum(-1)
+            sq, cross = rank_residual_stats(fi, X, geo, r, params.R_inv,
+                                            diag_mode)
             parts = comm.all_reduce(torch.stack([
-                sq, cross, torch.sum(tr),
+                sq, cross, weighted_trace(fi, X_cov),
                 *prior_partials(params, pri, X[geo.rows], X_cov,
                                 geo.ts.start),
                 cavi.gaussian_entropy(own)]), "mesh")
-            sq, cross, tr, prior0, priort, ent = parts
-            wsum = (n - 1) * tr if structure in ("full", "block") else None
+            sq, cross, wtr, prior0, priort, ent = parts
+            n_dyads, wsum = likelihood_counts(fi, n, T, wtr)
             elbo_t = cavi.elbo_from_terms(
-                p_ * sq + q_ * cross, n * (n - 1) // 2 * T, wsum, prior0,
+                p_ * sq + q_ * cross, n_dyads,
+                wsum if structure in ("full", "block") else None, prior0,
                 priort, ent, params, pri, d)
             elbo, mse = torch.stack([elbo_t,
-                                     2.0 * sq / (n * (n - 1) * T)]).tolist()
+                                     2.0 * sq / fi.mse_norm]).tolist()
             eh[it], mh[it] = elbo, mse
         rule.update(elbo)
         it += 1
@@ -280,10 +407,12 @@ def fit_smoothed_sharded(Y: Sharded, params, init: Sharded, *,
     block phase solves this rank's share of the block's trajectories in
     one :func:`~tame_torch.ops.fused_smoother.fused_smoother` call (K4 on
     the card; the associative-scan smoother under
-    ``smoother="parallel"``), then gathers the new means.  The result's
-    state holds this rank's pieces; ``full()`` gathers a plain
-    ``SmoothedFitResult``."""
-    refuse(mask, mixed_precision, diag_mode)
+    ``smoother="parallel"``), then gathers the new means.  ``mask``,
+    ``mixed_precision`` and ``diag_mode`` as in :func:`fit_cavi_sharded`.
+    The result's state holds this rank's pieces; ``full()`` gathers a
+    plain ``SmoothedFitResult``."""
+    if diag_mode not in ("exact", "stats"):
+        raise ValueError(f"unknown diag_mode: {diag_mode!r}")
     if smoother not in ("auto", "sequential", "parallel"):
         raise ValueError(f"unknown smoother: {smoother!r}")
     if update_mode not in ("auto", "jacobi", "block"):
@@ -306,7 +435,15 @@ def fit_smoothed_sharded(Y: Sharded, params, init: Sharded, *,
         update_mode = "block" if n >= 256 else "jacobi"
     geo = Geometry(mesh, n, T)
     params = params.to(mesh.device)
-    obs = cavi.precompute_obs_constants(Y.local, params.R_inv)
+    steps = phases(n, update_mode, default_blocks(n, update_mode,
+                                                  num_blocks))
+    fi = rank_inputs(Y, params.R_inv, mask, geo, steps,
+                     mixed_precision=mixed_precision, diag_mode=diag_mode)
+    obs = fi.obs
+    shares = [(geo.share(lo, hi), geo.local(geo.share(lo, hi)))
+              for lo, hi in steps]
+    contracts = [phase_contract(fi, k, loc)
+                 for k, (_, loc) in enumerate(shares)]
     pri = cavi.precompute_priors(params)
     solve = sm._trajectory_solver(pri, params, T, smoother == "parallel")
     p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
@@ -314,39 +451,35 @@ def fit_smoothed_sharded(Y: Sharded, params, init: Sharded, *,
     X = replicated_means(init)
     X_cov, X_cross = init.local.X_cov.clone(), init.local.X_cross.clone()
     logdets = init.local.logdets.clone()
-    steps = phases(n, update_mode, default_blocks(n, update_mode,
-                                                  num_blocks))
     buf = cavi.history_buffer(max_iter)
     eh = np.full(buf, np.nan, np.float32)
     mh = np.full(buf, np.nan, np.float32)
     rule = cavi._StopRule(carry_elbo, carry_patience, tolerance, patience)
     it = 0
     while it < max_iter and rule.running:
-        for lo, hi in steps:
-            rows = geo.share(lo, hi)
-            loc = geo.local(rows)
-            D_obs, bvec = cavi.rows_obs_terms(
-                X, rows, obs.W0[loc], obs.W1[loc], obs.eta_a[loc],
-                obs.eta_b[loc], params.R_inv, corrected)
+        for (lo, hi), (rows, loc), contract in zip(steps, shares, contracts):
             new = X[rows]
-            if D_obs.shape[0]:  # no row here of a block smaller than nodes
+            if new.shape[0]:  # no row here of a block smaller than nodes
+                D_obs, bvec = cavi.rows_obs_terms(
+                    X, rows, obs.W0[loc], obs.W1[loc], obs.eta_a[loc],
+                    obs.eta_b[loc], params.R_inv, corrected, contract)
                 out = solve(D_obs, bvec)
                 new = lr * out.mean + (1.0 - lr) * new
                 X_cov[loc], X_cross[loc] = out.cov, out.cross_cov
                 logdets[loc] = out.logdet
             geo.gather_means(X, new, lo, hi)
         state = sm.SmoothedState(X[geo.rows], X_cov, X_cross, logdets)
-        sq, cross = residual_partials(Y.local, X, geo, r)
-        tr = torch.diagonal(X_cov, dim1=-2, dim2=-1).sum(-1)
+        sq, cross = rank_residual_stats(fi, X, geo, r, params.R_inv,
+                                        diag_mode)
         parts = comm.all_reduce(torch.stack([
-            sq, cross, torch.sum(tr),
+            sq, cross, weighted_trace(fi, X_cov),
             *sm.smoothed_prior_entropy(params, pri, state)]), "mesh")
-        sq, cross, tr, prior0, priort, ent = parts
+        sq, cross, wtr, prior0, priort, ent = parts
+        n_dyads, wsum = likelihood_counts(fi, n, T, wtr)
         elbo_t = sm.smoothed_elbo_from_terms(
-            p_ * sq + q_ * cross, n * (n - 1) // 2 * T, (n - 1) * tr,
-            prior0, priort, ent, params, pri, d)
-        elbo, mse = torch.stack([elbo_t,
-                                 2.0 * sq / (n * (n - 1) * T)]).tolist()
+            p_ * sq + q_ * cross, n_dyads, wsum, prior0, priort, ent,
+            params, pri, d)
+        elbo, mse = torch.stack([elbo_t, 2.0 * sq / fi.mse_norm]).tolist()
         eh[it], mh[it] = elbo, mse
         rule.update(elbo)
         it += 1

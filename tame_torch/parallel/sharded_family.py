@@ -17,8 +17,11 @@ Poisson guard accepts or rejects the same iterate everywhere.  The new
 factors of the rank's rows (K1 on its n_local x T_local systems) are
 all-gathered over the mesh once per iteration.
 
-Not sharded: masks (``NotImplementedError``), and the Poisson ``carry`` of
-a segmented fit.
+A mask gates the rank's (T_local, m, n) terms (its rows of the whole mask,
+:func:`~tame_torch.parallel.mesh.place_mask`); the observed count is
+all-reduced.  A segmented Poisson fit takes ``carry=`` from a sharded
+result's ``resume_carry()``: the proposal's pieces are gathered into the
+replicated proposal, so the resumed fit continues the one-shot fit's bits.
 """
 
 from __future__ import annotations
@@ -42,22 +45,26 @@ from tame_torch.inference.poisson_cavi import (
     _weights,
 )
 from tame_torch.models.likelihoods import softplus
-from tame_torch.parallel.mesh import Sharded, cov_sharding, state_sharding
+from tame_torch.parallel.mesh import (
+    Sharded,
+    cov_sharding,
+    gather,
+    place_mask,
+    state_sharding,
+)
 from tame_torch.parallel.sharded_cavi import (
     Geometry,
     _check,
     prior_partials,
-    refuse,
-    replicated_means,
 )
 
 
 class _Rank:
     """One rank's share of a family fit: its observations and gate
-    (T_local, m, n), the replicated factors' geometry and the priors."""
+    (T_local, m, n; off the diagonal and, under ``mask``, the observed
+    dyads), the replicated factors' geometry and the priors."""
 
     def __init__(self, Y: Sharded, params, init: Sharded, mask):
-        refuse(mask)
         _check(Y, init)
         self.mesh, self.comm = Y.mesh, Y.mesh.comm
         n, T = Y.sizes["nodes"], Y.sizes["time"]
@@ -69,14 +76,22 @@ class _Rank:
         Yl = Y.local
         ids = torch.arange(n, device=Yl.device)
         off = (ids[None, :] != ids[geo.rows][:, None]).to(Yl.dtype)
-        self.offd = off[None].expand(Yl.shape[2], *off.shape).contiguous()
+        offd = off[None].expand(Yl.shape[2], *off.shape)
+        if mask is not None:
+            offd = offd * place_mask(Y, mask).permute(2, 0, 1)
+        self.offd = offd.contiguous()
         self.y0 = torch.where(self.offd > 0, Yl[..., 0].permute(2, 0, 1),
                               torch.zeros((), dtype=Yl.dtype,
                                           device=Yl.device)).contiguous()
         self.n_obs = torch.clamp(
             self.comm.all_reduce(self.offd.sum(), "mesh"), min=1.0)
-        self.state = (replicated_means(init), replicated_means(init, "X_cov"))
-        self.sizes = Y.sizes
+        self.spec, self.sizes = init.spec, init.sizes
+        self.state = self.replicated(init.local)
+
+    def replicated(self, state: cavi.CaviState):
+        """The replicated factors of a state of this rank's pieces."""
+        return tuple(gather(self.mesh, getattr(state, f), self.spec[f],
+                            self.sizes) for f in ("X_mean", "X_cov"))
 
     def own(self, state) -> cavi.CaviState:
         X, C = state
@@ -172,11 +187,9 @@ def fit_poisson_sharded(Y: Sharded, params, init: Sharded, *,
                         patience: int, carry, mask) -> Sharded:
     """:func:`tame_torch.inference.poisson_cavi.fit_cavi_poisson` on
     inputs from :func:`~tame_torch.parallel.mesh.shard_fit_inputs`: the
-    guard judges the all-reduced exact ELBO."""
-    if carry is not None:
-        raise NotImplementedError(
-            "a sharded Poisson fit takes no carry (a segmented fit is "
-            "listed under ROADMAP A.8 for a later port)")
+    guard judges the all-reduced exact ELBO.  ``carry``: a previous
+    sharded segment's ``resume_carry()`` (its proposal as this rank's
+    pieces), with ``init`` that segment's state."""
     rk = _Rank(Y, params, init, mask)
     y0, offd = rk.y0, rk.offd
     logyfac = torch.lgamma(y0 + 1.0)
@@ -196,11 +209,16 @@ def fit_poisson_sharded(Y: Sharded, params, init: Sharded, *,
         w = _weights(m, var, offd)
         return rk.update(base, w, (y0 - w + w * m) * offd, lr)
 
-    rule = GuardRule(-np.inf, 1.0, 0, tolerance, patience)
+    if carry is None:
+        prop, e0, scale0, pat0 = rk.state, -np.inf, 1.0, 0
+    else:
+        prop, e0, scale0, pat0 = carry
+        prop = rk.replicated(prop)
+    rule = GuardRule(e0, scale0, pat0, tolerance, patience)
     buf = cavi.history_buffer(max_iter)
     eh = np.full(buf, np.nan, np.float32)
     dh = np.full(buf, np.nan, np.float32)
-    state = base = rk.state
+    state, base = prop, rk.state
     it = 0
     while it < max_iter and rule.running:
         elbo, dev, m, var = evaluate(state)

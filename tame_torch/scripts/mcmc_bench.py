@@ -16,13 +16,16 @@ and prints one JSON object with:
   smoothed family's fit;
 * the host readbacks and batched leapfrog steps per NUTS transition,
   one batched gradient's time alone (CUDA events) and its kernels and
-  device time (``torch.profiler``), and the run's time per gradient
-  evaluation (the rest is the per-leaf bookkeeping and the readbacks).
+  device time (``torch.profiler``), the same gradient replayed as a CUDA
+  graph, and the run's time per gradient evaluation (the rest is the
+  per-leaf bookkeeping and the readbacks).
 
 The JAX script splits the chains into dispatches of 8 and times a second
 sweep after a compiling one; here there is no compilation, so one sweep
-of every chain is timed (kernels are built before the clock starts).  It
-writes a file only under ``--out``.
+of every chain is timed (kernels are built before the clock starts).  The
+chains' gradients replay one captured CUDA graph
+(:class:`tame_torch.inference.hmc.GraphedLogDensity`), the counterpart of
+the JAX script's compiled step.  It writes a file only under ``--out``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(_common.describe(device), flush=True)
 
     from tame_torch.inference import cavi
-    from tame_torch.inference.hmc import precondition_from_cavi, value_and_grad
+    from tame_torch.inference.hmc import (
+        GraphedLogDensity,
+        precondition_from_cavi,
+        value_and_grad,
+    )
     from tame_torch.inference.logprob import make_logdensity_fn
     from tame_torch.inference.nuts import nuts_kernel, run_nuts
     from tame_torch.inference.smoothed import (
@@ -123,13 +130,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"({grad['clock']}, median of 10); under the profiler "
           f"{prof['kernels']} kernels, {prof['device_ms']:.3f} ms of device "
           f"time", flush=True)
+    target = GraphedLogDensity(logdensity)
+    ggrad = benchmark(value_and_grad, target, inits, warmup=2, repeats=10,
+                      on_card=device.type == "cuda")
+    ref, got = value_and_grad(logdensity, inits), value_and_grad(target,
+                                                                 inits)
+    graph_diff = max(float((b - a).abs().max() / a.abs().max())
+                     for a, b in zip(ref, got))
+    print(f"one gradient replayed as a CUDA graph: "
+          f"{ggrad['median_s'] * 1e3:.3f} ms; max |graph - eager| / "
+          f"max |eager| {graph_diff}", flush=True)
     syncs0, trans0 = nuts_kernel.syncs, nuts_kernel.transitions
     steps0 = nuts_kernel.steps
     print(f"sampling ({C} chains in one batch, warmup {args.warmup}, "
           f"{args.samples} draws, max depth {args.max_depth}) ...",
           flush=True)
     out, wall = _common.timed(lambda: run_nuts(
-        logdensity, inits, gen, num_warmup=args.warmup,
+        target, inits, gen, num_warmup=args.warmup,
         num_samples=args.samples, max_depth=args.max_depth,
         inv_mass=inv_mass), device)
     syncs = nuts_kernel.syncs - syncs0
@@ -176,6 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "grad_ms": grad_ms,
         "grad_kernels": prof["kernels"],
         "grad_device_ms": prof["device_ms"],
+        "graph_grad_ms": ggrad["median_s"] * 1e3,
+        "graph_rel_diff": graph_diff,
         "ms_per_gradient_in_run": wall / (steps + transitions) * 1e3,
         "split_rhat_max": float(rhat.max()),
         "split_rhat_median": float(np.median(rhat)),

@@ -1,11 +1,19 @@
-"""Rank-side cases of ``tests/test_torch_parallel.py``: one spawned gloo
-world on the CPU runs them all, each rank calling every case in order (a
-mesh is made by every rank of the world; its members run the fit).
+"""Rank-side cases of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_parallel_masked.py``: one spawned gloo world on the CPU
+per file runs them all, each rank calling every case in order (a mesh is
+made by every rank of the world; its members run the fit).
 
 This module imports only torch, numpy and tame_torch, so that the spawned
 children never import JAX.  Inputs arrive as numpy arrays; results go back
-as numpy arrays and plain numbers.
+as numpy arrays and plain numbers.  A case with ``packed=True`` runs with
+``TAME_PACKED_MASK=1`` (masked contractions through K5's twin) in the
+rank's environment.
 """
+
+import contextlib
+import os
+
+import numpy as np
 
 from tame_torch.inference import (
     TemporalAMEHMC,
@@ -50,7 +58,18 @@ def _history(out, key="elbo_history"):
     return getattr(out, key)[:out.n_iter].numpy()
 
 
-def fit(nodes, time, Y, init, params, kw, family="gaussian"):
+@contextlib.contextmanager
+def _packed(on: bool):
+    """``TAME_PACKED_MASK=1`` inside the block when ``on``."""
+    if on:
+        os.environ["TAME_PACKED_MASK"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("TAME_PACKED_MASK", None)
+
+
+def fit(nodes, time, Y, init, params, kw, family="gaussian", packed=False):
     """A sharded CAVI, Bernoulli or Poisson fit; the gathered means and
     covariances, the ELBO history and the stop."""
     mesh = _mesh(nodes, time)
@@ -59,7 +78,8 @@ def fit(nodes, time, Y, init, params, kw, family="gaussian"):
     fn = {"gaussian": cavi.fit_cavi, "bernoulli": fit_cavi_bernoulli,
           "poisson": fit_cavi_poisson}[family]
     Y_s, init_s = shard_fit_inputs(mesh, Y, cavi.state_from_numpy(init))
-    out = fn(Y_s, params_from_numpy(params), init_s, **kw)
+    with _packed(packed):
+        out = fn(Y_s, params_from_numpy(params), init_s, **kw)
     full = out.full()
     return {"X_mean": full.X_mean.numpy(), "X_cov": full.X_cov.numpy(),
             "elbo": _history(out), "n_iter": out.n_iter,
@@ -67,14 +87,15 @@ def fit(nodes, time, Y, init, params, kw, family="gaussian"):
             "local_rows": out.X_mean.shape[0]}
 
 
-def smoothed_fit(nodes, Y, init, params, kw):
+def smoothed_fit(nodes, Y, init, params, kw, packed=False):
     mesh, timed = _mesh(nodes), _mesh(2, 2)
     if not mesh.member:
         return None
     state = smoothed.smoothed_state_from_numpy(init)
     Y_s, init_s = shard_smoothed_inputs(mesh, Y, state)
-    out = smoothed.fit_cavi_smoothed(Y_s, params_from_numpy(params), init_s,
-                                     **kw)
+    with _packed(packed):
+        out = smoothed.fit_cavi_smoothed(Y_s, params_from_numpy(params),
+                                         init_s, **kw)
     full = out.full()
     try:
         shard_smoothed_inputs(timed, Y, state)
@@ -84,6 +105,26 @@ def smoothed_fit(nodes, Y, init, params, kw):
     return {"X_mean": full.state.X_mean.numpy(),
             "logdets": full.state.logdets.numpy(), "elbo": _history(out),
             "n_iter": out.n_iter, "refused": refused}
+
+
+def poisson_resume(nodes, time, Y, init, params, kw, total, first):
+    """A sharded Poisson fit of ``total`` iterations in one shot, and the
+    same fit stopped after ``first`` and resumed from the stopped fit's
+    state and ``resume_carry()``."""
+    mesh = _mesh(nodes, time)
+    if not mesh.member:
+        return None
+    p = params_from_numpy(params)
+    Y_s, init_s = shard_fit_inputs(mesh, Y, cavi.state_from_numpy(init))
+    one = fit_cavi_poisson(Y_s, p, init_s, max_iter=total, **kw)
+    head = fit_cavi_poisson(Y_s, p, init_s, max_iter=first, **kw)
+    _, mid = shard_fit_inputs(mesh, Y, head.full())
+    tail = fit_cavi_poisson(Y_s, p, mid, max_iter=total - first,
+                            carry=head.resume_carry(), **kw)
+    return {"one": one.full().X_mean.numpy(), "one_elbo": _history(one),
+            "resumed": tail.full().X_mean.numpy(),
+            "resumed_elbo": np.concatenate([_history(head), _history(tail)]),
+            "n_iter": head.n_iter + tail.n_iter}
 
 
 def samplers(batch):
@@ -149,12 +190,13 @@ def scaling(Y, init, params, kw):
     return {"strong": strong, "weak": weak}
 
 
-def iteration_bytes(nodes, time, n, T, r, num_blocks):
+def iteration_bytes(nodes, time, n, T, r, num_blocks, **options):
     mesh = _mesh(nodes, time)
     if not mesh.member:
         return None
-    return count_iteration(mesh, n, T, r, num_blocks=num_blocks)
+    return count_iteration(mesh, n, T, r, num_blocks=num_blocks, **options)
 
 
 CASES = {"fit": fit, "smoothed": smoothed_fit, "samplers": samplers,
-         "meshes": meshes, "scaling": scaling, "bytes": iteration_bytes}
+         "meshes": meshes, "scaling": scaling, "bytes": iteration_bytes,
+         "resume": poisson_resume}

@@ -1,7 +1,9 @@
 """Port parity for HMC (``tame_torch.inference.hmc``): the integrator, the
 dual-averaging recursion and one transition fed ``tame``'s own draws
 against ``tame.inference.hmc`` (JAX, CPU), the CAVI preconditioner from
-one init, standard-normal moments, and the engine class surface.
+one init, standard-normal moments, the graphed log density (the eager
+function on the CPU; the eager gradient on the card), and the engine class
+surface.
 """
 
 import jax
@@ -127,6 +129,48 @@ def test_precondition_from_cavi_matches_tame(monkeypatch):
         ref = np.asarray(ref)
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4,
                                    atol=1e-4 * np.abs(ref).max())
+
+
+def test_graphed_log_density_on_the_cpu_is_the_eager_function():
+    """On CPU tensors a ``GraphedLogDensity`` is its function, eager: the
+    same values and gradients, and NUTS driven through it draws the same
+    bits as NUTS on the bare function."""
+    from tame_torch.inference import run_nuts
+
+    _, _, _, tfn, x0, inv_mass = _target()
+    graphed = thmc.GraphedLogDensity(tfn)
+    x = torch.from_numpy(x0)[None].repeat(3, 1, 1, 1)
+    assert torch.equal(graphed(x), tfn(x))
+    for a, b in zip(thmc.value_and_grad(graphed, x),
+                    thmc.value_and_grad(tfn, x)):
+        assert torch.equal(a, b)
+    assert graphed.graphs == {}
+    runs = [run_nuts(fn, x, torch.Generator().manual_seed(3), num_warmup=3,
+                     num_samples=3, max_depth=3,
+                     inv_mass=torch.from_numpy(inv_mass))
+            for fn in (graphed, tfn)]
+    assert torch.equal(runs[0].positions, runs[1].positions)
+
+
+@pytest.mark.cuda
+def test_graphed_log_density_replays_the_eager_gradient():
+    """On the card the captured graph gives the eager pass's values and
+    gradients at every new input, within f32 reduction order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA graph has no CPU mode; "
+                    "the CPU path is the eager function, tested above)")
+    Y, jp, _, _, x0, _ = _target(n=12, T=4, r=2)
+    fn = tlp.make_logdensity_fn(params_from_numpy(jp, device="cuda"),
+                                torch.from_numpy(Y).cuda())
+    graphed = thmc.GraphedLogDensity(fn)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(3):
+        x = torch.from_numpy(x0).cuda()[None] + 0.1 * torch.randn(
+            (5,) + x0.shape, generator=gen, device="cuda")
+        for a, b in zip(thmc.value_and_grad(graphed, x),
+                        thmc.value_and_grad(fn, x)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert len(graphed.graphs) == 1
 
 
 def test_standard_normal_moments():

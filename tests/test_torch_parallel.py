@@ -32,7 +32,6 @@ from tame.parallel import make_mesh as j_make_mesh
 from tame.parallel import shard_fit_inputs as j_shard_fit_inputs
 import tame_torch
 from tame_torch.inference import cavi as tcavi
-from tame_torch.inference import fit_cavi_bernoulli
 from tame_torch.inference import smoothed as tsm
 from tame_torch.models import params_from_numpy
 from tame_torch.parallel import (
@@ -43,7 +42,6 @@ from tame_torch.parallel import (
     obs_sharding,
     replicated,
     shard_fit_inputs,
-    shard_smoothed_inputs,
     state_sharding,
 )
 from tame_torch.parallel import comm
@@ -368,27 +366,40 @@ def test_one_rank_mesh_is_the_plain_fit(one_rank, problems):
         tcavi.fit_cavi(torch.as_tensor(Y), params_from_numpy(p), init_s)
 
 
-@pytest.mark.parametrize("what", ["mask", "mixed_precision", "stats",
-                                  "packed", "seq", "fused"])
-def test_out_of_scope_raises(one_rank, problems, what, monkeypatch):
+@pytest.mark.parametrize("what", ["fused", "fit_em", "warm_init_state",
+                                  "warm_init_smoothed_state",
+                                  "fit_smoothed_family",
+                                  "warm_init_smoothed_family",
+                                  "exact_elbo"])
+def test_out_of_scope_raises(one_rank, problems, what):
+    """K3 never runs under a mesh; the entry points with no sharded engine
+    refuse a sharded ``Y`` by name before they read it."""
+    from tame_torch.inference import (
+        exact_elbo,
+        fit_em,
+        fit_smoothed_family,
+        warm_init_smoothed_family,
+    )
+
     Y, init, p = problems["base"]
     Y_s, init_s = shard_fit_inputs(one_rank, Y, tcavi.state_from_numpy(init))
-    kw = {"mask": dict(mask=np.ones((16, 16, 8), np.float32)),
-          "mixed_precision": dict(mixed_precision=True),
-          "stats": dict(diag_mode="stats"), "packed": {},
-          "seq": dict(update_mode="seq"), "fused": dict(fused=True)}[what]
-    if what == "packed":
-        monkeypatch.setenv("TAME_PACKED_MASK", "1")
-    err = ValueError if what == "fused" else NotImplementedError
-    with pytest.raises(err, match="K3" if what == "fused" else "ROADMAP"):
-        tcavi.fit_cavi(Y_s, params_from_numpy(p), init_s, **kw)
-    if what == "mask":  # the smoothed and Bernoulli fits refuse it too
-        Y2, s2 = shard_smoothed_inputs(
-            one_rank, Y, tsm.init_smoothed_state(torch.Generator(), 16, 8, 6))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsm.fit_cavi_smoothed(Y2, params_from_numpy(p), s2, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fit_cavi_bernoulli(Y_s, params_from_numpy(p), init_s, **kw)
+    params = params_from_numpy(p)
+    if what == "fused":
+        with pytest.raises(ValueError, match="K3"):
+            tcavi.fit_cavi(Y_s, params, init_s, fused=True)
+        return
+    state = tsm.init_smoothed_state(torch.Generator(), 16, 8, 6)
+    call = {"fit_em": lambda: fit_em(Y_s, params, n_em=1),
+            "warm_init_state": lambda: tcavi.warm_init_state(Y_s, params),
+            "warm_init_smoothed_state":
+                lambda: tsm.warm_init_smoothed_state(Y_s, params),
+            "fit_smoothed_family": lambda: fit_smoothed_family(
+                Y_s, params, state, family="bernoulli"),
+            "warm_init_smoothed_family": lambda: warm_init_smoothed_family(
+                Y_s, params, "poisson"),
+            "exact_elbo": lambda: exact_elbo(Y_s, params, state)}[what]
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A.9"):
+        call()
 
 
 def test_no_jax_in_the_worker_module():
