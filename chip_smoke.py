@@ -1615,23 +1615,24 @@ def phase_card_vs_cpu(kind: str) -> int:
 
 
 @contextlib.contextmanager
-def counting_inner_iterations(tally: list):
-    """Count the iterations of every smoothed-family E-step ``fit_em``
-    runs (its backoff retries included) into ``tally``."""
+def counting_inner_iterations(tally: list, e_step="fit_smoothed_family"):
+    """Count the iterations of every E-step ``fit_em`` runs (its backoff
+    retries included) into ``tally``: the smoothed family's, or
+    ``e_step="fit_cavi_smoothed"`` the Gaussian one's."""
     from tame_torch.inference import em
 
-    inner = em.fit_smoothed_family
+    inner = getattr(em, e_step)
 
     def counted(*args, **kw):
         out = inner(*args, **kw)
         tally.append(out.n_iter)
         return out
 
-    em.fit_smoothed_family = counted
+    setattr(em, e_step, counted)
     try:
         yield
     finally:
-        em.fit_smoothed_family = inner
+        setattr(em, e_step, inner)
 
 
 def phase_binary_em() -> int:
@@ -2518,6 +2519,16 @@ RESUME_TOTAL, RESUME_KILL = 16, 8
 # Several ranks' seq sweep: the same solves, the ELBO summed in another
 # order.
 SEQ_SHARDED_RTOL = 1e-5
+# The sharded warm inits, EM and smoothed families: the north-star warm
+# init (dyadic means within WARM_DYAD_RTOL of the max on several ranks),
+# one EM iteration from em_data()'s wrong start with its E-step to its stop
+# (learned scalars within EM_SCALAR_RTOL relative, ELBO and exact ELBO
+# within SHARDED_ELBO_RTOL), the smoothed Bernoulli fit at SHARDED_FAMILY
+# (FAMILY_ITERS iterations, 30 % hidden, from the plain warm init).
+WARM_DYAD_RTOL, EM_SCALAR_RTOL, EM_INNER = 1e-4, 1e-4, 60
+EM_SCALARS = ("phi", "trQ", "trSigma0", "sigma2", "rho")
+SMOOTHED_BERNOULLI = dict(family="bernoulli", max_iter=FAMILY_ITERS,
+                          learning_rate=0.7, tolerance=0.0)
 
 
 def north_star_inputs(device="cuda"):
@@ -2735,10 +2746,15 @@ def sharded_rank(rank: int, backend: str, refs: dict) -> dict:
     t0 = time.perf_counter()
     out.update(sharded_masked(mesh, wrappers, Y_s, Ys_s, warm_s, params,
                               init_s, mask, refs))
-    del Y, Y_s, Ys_s, warm_s, mask
+    del Y, Y_s, warm_s, mask
     torch.cuda.empty_cache()
     out.update(sharded_small_legs(mesh, wrappers, refs))
     out["new_legs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.update(sharded_em_legs(mesh, wrappers, Ys_s, warm, params, refs))
+    out["em_legs_s"] = time.perf_counter() - t0
+    del Ys_s
+    torch.cuda.empty_cache()
     batch = make_mesh(batch=world, device="cuda", backend=backend)
     out.update(sharded_samplers(batch))
     return out
@@ -2847,6 +2863,275 @@ def killed_sharded_poisson(mesh, Y, Y_s, params, init_s, mask):
     return one, head, tail
 
 
+def centroid_fwd(X_mean: torch.Tensor) -> torch.Tensor:
+    """The dyadic means ``a_i + b_j + U_i . V_j`` (n, n) of a warm init's
+    centroid (its t = 0 slice; every t holds the same)."""
+    X = X_mean[:, 0]
+    r = (X.shape[-1] - 2) // 2
+    return X[:, 0, None] + X[None, :, 1] + X[:, 2:2 + r] @ X[:, 2 + r:].T
+
+
+def timed_warm_init(mesh, Y_s, params):
+    """The smoothed warm init of a sharded ``Y``, host-timed, with its
+    collectives: ``(state, ms, collectives)``.  The first call on a mesh
+    also sets up its ``nodes`` group's communicator, so the phases time a
+    second."""
+    from tame_torch.inference import smoothed
+
+    torch.cuda.synchronize()
+    mesh.comm.reset()
+    t0 = time.perf_counter()
+    out = smoothed.warm_init_smoothed_state(Y_s, params)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, mesh.comm.stats()
+
+
+def em_iteration(Y, start, init):
+    """One ``fit_em`` iteration from ``init`` (its E-step to its stop, at
+    most EM_INNER iterations), host-timed: ``(result, E-step iterations,
+    ms)``."""
+    from tame_torch.inference import fit_em
+
+    tally: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting_inner_iterations(tally, "fit_cavi_smoothed"):
+        res = fit_em(Y, start, init=init, n_em=1, inner_max_iter=EM_INNER)
+    torch.cuda.synchronize()
+    return res, tally, (time.perf_counter() - t0) * 1e3
+
+
+def em_summary(res, stops: list, Y) -> dict:
+    """The learned scalars, the E-step's final ELBO and stops, and the exact
+    ELBO of the result (the learned parameters, the E-step's posterior)."""
+    from tame_torch.inference import exact_elbo
+
+    h = res.history
+    return {**{k: h[k][0] for k in EM_SCALARS}, "elbo": h["elbo"][0],
+            "stops": stops,
+            "exact_elbo": float(exact_elbo(Y, res.params, res.state))}
+
+
+def phase_one_rank_em(one: dict, Y, params) -> dict:
+    """Phase 39's mesh beside the plain functions, bit for bit: the
+    north-star warm init (timed, its collectives); one Gaussian EM
+    iteration from em_data()'s wrong start and its own warm init, the
+    E-step to its stop (at most EM_INNER), with the exact ELBO of the
+    result and the collectives of the EM iteration; the smoothed
+    Bernoulli fit at n=1000, T=20, r=2 with 30 % hidden from the plain
+    warm init, and that family's warm init from the rank's rows.  Returns
+    what the sharded worlds match."""
+    from tame_torch.inference import (
+        fit_smoothed_family,
+        smoothed,
+        warm_init_smoothed_family,
+    )
+    from tame_torch.parallel import shard_smoothed_inputs
+
+    mesh, wrappers = one["mesh"], kernel_wrappers()
+    report, refs = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = smoothed.warm_init_smoothed_state(Y, params)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    first_ms = timed_warm_init(mesh, one["Y_s"], params)[1]
+    warm, ms, coll = timed_warm_init(mesh, one["Y_s"], params)
+    report["warm init"] = dict(
+        ms=ms, first_ms=first_ms, plain_ms=plain_ms, collectives=coll,
+        bit_for_bit=all(torch.equal(a, b)
+                        for a, b in zip(warm.full(), plain)))
+    require(report["warm init"]["bit_for_bit"], "the one-rank warm init is "
+            "not the plain warm init's bits")
+    del plain, warm
+
+    Y_em, start = em_data()
+    Y_em_s, _ = shard_smoothed_inputs(mesh, Y_em)
+    init = smoothed.warm_init_smoothed_state(Y_em, start)
+    init_s = smoothed.warm_init_smoothed_state(Y_em_s, start)
+    (res, stops, plain_ms), pc = launches_of(
+        wrappers, lambda: em_iteration(Y_em, start, init))
+    mesh.comm.reset()
+    (res_s, stops_s, ms), sc = launches_of(
+        wrappers, lambda: em_iteration(Y_em_s, start, init_s))
+    coll = mesh.comm.stats()
+    got, want = em_summary(res_s, stops_s, Y_em_s), em_summary(res, stops,
+                                                                Y_em)
+    bits = bool(got == want
+                and all(torch.equal(a, b)
+                        for a, b in zip(res_s.params, res.params))
+                and all(torch.equal(a, b)
+                        for a, b in zip(res_s.state.full(), res.state)))
+    report["EM"] = dict(got, ms=ms, plain_ms=plain_ms, launches=sc,
+                        collectives_per_em_iteration=coll, bit_for_bit=bits)
+    require(bits, f"the one-rank EM iteration is not the plain one's bits: "
+            f"{got} against {want}")
+    for label, c, n in (("plain", pc, stops), ("one-rank", sc, stops_s)):
+        require(c["fused_smoother"] == 16 * sum(n), f"the {label} EM E-step "
+                f"did not launch K4 once per block phase ({n}): {c}")
+    refs["em"] = got
+    del Y_em, Y_em_s, init, init_s, res, res_s
+    torch.cuda.empty_cache()
+
+    Yb, pb, _, mask = family_sharded_inputs("bernoulli")
+    host_mask = mask.cpu()
+    warm = warm_init_smoothed_family(Yb, pb, "bernoulli", obs_mask=mask)
+    Yb_s, warm_s = shard_smoothed_inputs(mesh, Yb, warm)
+    own = warm_init_smoothed_family(Yb_s, pb, "bernoulli",
+                                    obs_mask=host_mask)
+    warm_bits = all(torch.equal(a, b) for a, b in zip(own.full(), warm))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, pc = launches_of(wrappers, lambda: fit_smoothed_family(
+        Yb, pb, warm, mask=mask, **SMOOTHED_BERNOULLI))
+    t1 = time.perf_counter()
+    fit_s, sc = launches_of(wrappers, lambda: fit_smoothed_family(
+        Yb_s, pb, warm_s, mask=host_mask, **SMOOTHED_BERNOULLI))
+    t2 = time.perf_counter()
+    bits = bool(torch.equal(fit_s.field("state").full().X_mean,
+                            fit.state.X_mean)
+                and torch.equal(fit_s.elbo_history[:FAMILY_ITERS],
+                                fit.elbo_history[:FAMILY_ITERS]))
+    report["smoothed Bernoulli"] = dict(
+        ms_per_iter=(t2 - t1) * 1e3 / FAMILY_ITERS,
+        plain_ms_per_iter=(t1 - t0) * 1e3 / FAMILY_ITERS, launches=sc,
+        warm_init_bit_for_bit=warm_bits, bit_for_bit=bits)
+    require(bits and warm_bits, f"the one-rank smoothed Bernoulli fit or its "
+            f"warm init is not the plain one's bits: {report}")
+    for label, c in (("plain", pc), ("one-rank", sc)):
+        require(c["fused_smoother"] == FAMILY_ITERS, f"the {label} smoothed "
+                f"Bernoulli fit did not launch K4 once per iteration: {c}")
+    refs["bernoulli"] = {"X_mean": fit.state.X_mean.cpu(),
+                         "elbo": fit.elbo_history[:FAMILY_ITERS]}
+    PARALLEL["one NCCL rank, warm init / EM / smoothed Bernoulli"] = report
+    print(f"n=2000 T=50 r=4 warm init and EM, n=1000 T=20 r=2 smoothed "
+          f"Bernoulli, one-rank NCCL mesh beside the plain functions: "
+          f"{json.dumps(report)} on {CARD}", flush=True)
+    return refs
+
+
+def sharded_em_legs(mesh, wrappers, Ys_s, warm, params, refs) -> dict:
+    """One rank's legs of the sharded warm init, EM and smoothed family:
+    the north-star warm init from the rank's rows against the plain one
+    (``warm``; dyadic means), timed, with its collectives; one EM
+    iteration from em_data()'s wrong start and the sharded warm init, its
+    E-step to its stop, against the one-rank run (learned scalars, stop,
+    ELBO, exact ELBO), its collectives beside
+    ``comm_analysis.count_em_iteration``'s; the smoothed Bernoulli fit
+    against the one-rank fit, with its K4 launches."""
+    from tame_torch.inference import (
+        fit_smoothed_family,
+        smoothed,
+        warm_init_smoothed_family,
+    )
+    from tame_torch.parallel import shard_smoothed_inputs
+    from tame_torch.parallel.comm_analysis import count_em_iteration
+
+    out, ref = {}, refs["em legs"]
+    first_ms = timed_warm_init(mesh, Ys_s, params)[1]
+    own, ms, coll = timed_warm_init(mesh, Ys_s, params)
+    got = centroid_fwd(own.full().X_mean)
+    want = centroid_fwd(warm.X_mean.to(got.device))
+    out["warm init"] = dict(ms=ms, first_ms=first_ms, collectives=coll,
+                            dyad_rel=((got - want).abs().max()
+                                      / want.abs().max()).item())
+    del own, got, want
+
+    Y_em, start = em_data()
+    Y_em_s, _ = shard_smoothed_inputs(mesh, Y_em.cpu())
+    del Y_em
+    torch.cuda.empty_cache()
+    init_s = smoothed.warm_init_smoothed_state(Y_em_s, start)
+    mesh.comm.reset()
+    (res, stops, ms), c = counted(wrappers, lambda: em_iteration(
+        Y_em_s, start, init_s))
+    coll = mesh.comm.stats()
+    got, want = em_summary(res, stops, Y_em_s), ref["em"]
+    out["EM"] = dict(
+        got, ms=ms, launches=c, collectives_per_em_iteration=coll,
+        counted=count_em_iteration(mesh, *NS_SHAPE, sum(stops))[
+            "em_iteration"],
+        scalar_rel=max(abs(got[k] - want[k]) / abs(want[k])
+                       for k in EM_SCALARS),
+        elbo_rel=abs(got["elbo"] - want["elbo"]) / abs(want["elbo"]),
+        exact_rel=(abs(got["exact_elbo"] - want["exact_elbo"])
+                   / abs(want["exact_elbo"])))
+    del Y_em_s, init_s, res
+    torch.cuda.empty_cache()
+
+    Yb, pb, _, mask = family_sharded_inputs("bernoulli")
+    warm_b = warm_init_smoothed_family(Yb, pb, "bernoulli", obs_mask=mask)
+    Yb_s, warm_s = shard_smoothed_inputs(mesh, Yb.cpu(), warm_b)
+    mask = mask.cpu()
+    del Yb
+    t0 = time.perf_counter()
+    fit, c = counted(wrappers, lambda: fit_smoothed_family(
+        Yb_s, pb, warm_s, mask=mask, **SMOOTHED_BERNOULLI))
+    b = ref["bernoulli"]
+    out["smoothed Bernoulli"] = dict(
+        launches=c,
+        ms_per_iter=(time.perf_counter() - t0) * 1e3 / FAMILY_ITERS,
+        dx=(fit.field("state").full().X_mean.cpu() - b["X_mean"]).abs()
+        .max().item(),
+        elbo_rel=max_rel(fit.elbo_history[:FAMILY_ITERS], b["elbo"]))
+    return out
+
+
+def check_em_legs(label: str, ranks: list) -> None:
+    """The sharded warm init, EM and smoothed Bernoulli legs on every rank
+    of one world: the gates, one E-step stop, the collectives of the EM
+    iteration as ``count_em_iteration`` counts them, K4 launches."""
+    for r in ranks:
+        tag = f"{label}, rank {r['rank']}"
+        warm, em, fam = (r["warm init"], r["EM"], r["smoothed Bernoulli"])
+        require(warm["dyad_rel"] <= WARM_DYAD_RTOL, f"{tag}: the sharded "
+                f"warm init's dyadic means are off the plain ones: "
+                f"{warm['dyad_rel']}")
+        require(em["scalar_rel"] <= EM_SCALAR_RTOL
+                and em["elbo_rel"] <= SHARDED_ELBO_RTOL
+                and em["exact_rel"] <= SHARDED_ELBO_RTOL,
+                f"{tag}: the sharded EM iteration is off the one-rank one: "
+                f"{em}")
+        require(em["stops"] == ranks[0]["EM"]["stops"], f"{tag}: the ranks' "
+                f"E-steps stopped apart")
+        require(em["collectives_per_em_iteration"] == em["counted"],
+                f"{tag}: the EM iteration's collectives are not "
+                f"count_em_iteration's: {em}")
+        require(em["launches"]["fused_smoother"] == 16 * sum(em["stops"]),
+                f"{tag}: the sharded E-step did not launch K4 once per block "
+                f"phase: {em['launches']}")
+        require(fam["dx"] <= SHARDED_DX
+                and fam["elbo_rel"] <= SHARDED_ELBO_RTOL,
+                f"{tag}: the sharded smoothed Bernoulli fit is off the "
+                f"one-rank fit: {fam}")
+        require(fam["launches"]["fused_smoother"] == FAMILY_ITERS,
+                f"{tag}: the sharded smoothed Bernoulli fit did not launch K4 "
+                f"once per iteration: {fam['launches']}")
+    key = f"{label}, warm init / EM / smoothed Bernoulli"
+    PARALLEL[key] = {
+        "warm_init_ms": [r["warm init"]["ms"] for r in ranks],
+        "warm_init_collectives": ranks[0]["warm init"]["collectives"],
+        "warm_init_dyad_rel": max(r["warm init"]["dyad_rel"] for r in ranks),
+        "em": {k: ranks[0]["EM"][k] for k in (*EM_SCALARS, "elbo", "stops",
+                                               "exact_elbo")},
+        "em_ms": [r["EM"]["ms"] for r in ranks],
+        "em_collectives_per_iteration":
+            ranks[0]["EM"]["collectives_per_em_iteration"],
+        "em_scalar_rel": max(r["EM"]["scalar_rel"] for r in ranks),
+        "em_elbo_rel": max(r["EM"]["elbo_rel"] for r in ranks),
+        "em_exact_rel": max(r["EM"]["exact_rel"] for r in ranks),
+        "bernoulli_ms_per_iter": [r["smoothed Bernoulli"]["ms_per_iter"]
+                                  for r in ranks],
+        "bernoulli_dx": max(r["smoothed Bernoulli"]["dx"] for r in ranks),
+        "bernoulli_elbo_rel": max(r["smoothed Bernoulli"]["elbo_rel"]
+                                  for r in ranks),
+        "bernoulli_k4_per_rank_per_iteration": [
+            r["smoothed Bernoulli"]["launches"]["fused_smoother"]
+            / FAMILY_ITERS for r in ranks],
+        "legs_s": [r["em_legs_s"] for r in ranks]}
+    print(f"{key}: {json.dumps(PARALLEL[key])} on {CARD}", flush=True)
+
+
 def check_sharded_world(label: str, ranks: list, ref_stop: int) -> None:
     """Phases 40-43's checks on every rank of one world."""
     from tame_torch.parallel.comm_analysis import layout_bytes
@@ -2876,6 +3161,7 @@ def check_sharded_world(label: str, ranks: list, ref_stop: int) -> None:
     require(len(stops) == 1 and next(iter(stops))[1],
             f"{label}: the ranks stopped apart or did not converge: {stops}")
     check_sharded_legs(label, ranks)
+    check_em_legs(label, ranks)
     r0 = ranks[0]
     coll = r0["collectives_per_iteration"]
     want = layout_bytes(*NS_SHAPE, len(ranks), 1, 16)
@@ -3001,7 +3287,7 @@ def rank_launches(ranks: list) -> dict:
                    for key in ("launches", "stop_launches")]
         counts += [r[leg]["launches"] for leg in (
             "masked smoothed", "seq", "bernoulli", "poisson",
-            "poisson resume")]
+            "poisson resume", "EM", "smoothed Bernoulli")]
         for c in counts:
             for k, v in c.items():
                 total[k] = total.get(k, 0) + v
@@ -3220,6 +3506,11 @@ def parallel_paths(drive, paths: list, nccl_leg: bool = False) -> None:
             + 2 * FAMILY_ITERS, f"the seq and family references did not "
             f"launch K1 n T times per seq iteration and once per family "
             f"iteration: {c}")
+    refs["em legs"], c = drive(
+        "n=2000 one-rank NCCL mesh, warm init and EM; n=1000 smoothed "
+        "Bernoulli (and the plain ones)", timed_phase,
+        "n=2000 one-rank NCCL mesh, warm init / EM / smoothed Bernoulli",
+        phase_one_rank_em, one, Y, params)
     del one, Y
     torch.cuda.empty_cache()
     worlds = [] if nccl_leg else [("two gloo ranks sharing the card", 2,

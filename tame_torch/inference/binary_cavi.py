@@ -72,7 +72,15 @@ def family_inputs(Y: torch.Tensor, mask=None) -> FamilyInputs:
     """Observations and gate of ``Y`` (the (n, n, T, 2) reciprocal layout,
     component 0 read) in the engines' (T, n, n) layout; ``mask`` (n, n, T)
     gates the observed dyads.  Unobserved entries are replaced by 0 with
-    ``where``, so NaN-coded ones are never read."""
+    ``where``, so NaN-coded ones are never read.  A sharded ``Y`` raises
+    ``TypeError``: the sharded engines build each rank's gate
+    themselves."""
+    if cavi.is_sharded(Y):
+        raise TypeError(
+            "family_inputs takes the whole network; a sharded Y goes to "
+            "the sharded engines, tame_torch.parallel.sharded_family "
+            "(fit_cavi_bernoulli, fit_cavi_poisson and fit_smoothed_family "
+            "send it there)")
     n, _, T, _ = Y.shape
     offd = dyad_ops.offdiag_mask(n, Y.dtype, Y.device)[None].expand(T, n, n)
     if mask is not None:

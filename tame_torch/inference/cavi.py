@@ -556,7 +556,19 @@ def compute_elbo(Y: torch.Tensor, params: AMEParams, pri: PriorMatrices,
     """ELBO with the reference's exact term structure (plug-in likelihood
     at the means, the structured policies' trace correction, Gaussian
     priors with trace terms, Gaussian entropy); under ``obs_mask`` the
-    likelihood runs over observed dyads only."""
+    likelihood runs over observed dyads only.
+
+    ``Y`` and ``state`` sharded over a mesh (a sharded fit's result, or
+    :func:`tame_torch.parallel.shard_fit_inputs`; ``obs_mask`` the whole
+    mask) sum each rank's rows
+    (:func:`tame_torch.parallel.sharded_cavi.compute_elbo_sharded`);
+    ``mu_dyadic`` is then computed on the rows and may not be passed."""
+    if _sharded(Y, state):
+        from tame_torch.parallel.sharded_cavi import compute_elbo_sharded
+
+        refuse_mu_dyadic(mu_dyadic)
+        return compute_elbo_sharded(Y, params, pri, state, structure,
+                                    obs_mask)
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
     if obs_mask is None:
@@ -877,8 +889,19 @@ def warm_init_state(Y: torch.Tensor, params: AMEParams, *,
     ``obs_mask`` (n, n, T) restricts every average to observed dyads: time
     averages divide by per-entry observed counts and row/col/grand means
     by observed-partner counts; masked entries of ``Y`` are never read.
+
+    A sharded ``Y`` (:func:`tame_torch.parallel.shard_fit_inputs` or
+    ``shard_smoothed_inputs``; ``obs_mask`` the whole mask) returns the
+    state sharded as ``shard_fit_inputs`` places one, computed from each
+    rank's rows (:func:`tame_torch.parallel.sharded_init.warm_init_sharded`).
     """
-    refuse_sharded(Y, "warm_init_state")
+    if is_sharded(Y):
+        from tame_torch.parallel.sharded_init import warm_init_sharded
+
+        return warm_init_sharded(Y, params, structure=structure,
+                                 cov_init_scale=cov_init_scale,
+                                 n_power_iters=n_power_iters, probe=probe,
+                                 generator=generator, obs_mask=obs_mask)
     n, _, T, _ = Y.shape
     d = params.Phi.shape[0]
     r = (d - 2) // 2
@@ -1098,25 +1121,24 @@ def check_fit_options(update_mode: str, diag_mode: str, mask,
         raise ValueError(f"unknown update_mode: {update_mode!r}")
 
 
-def refuse_sharded(Y, entry: str) -> None:
-    """Raise where an entry point with no sharded engine is handed a
-    sharded ``Y`` (:func:`tame_torch.parallel.shard_fit_inputs`), before
-    anything reads it: a sharded value reads through to this rank's piece,
-    whose shape and indexing are not the whole network's."""
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a value sharded over a mesh
+    (:class:`tame_torch.parallel.mesh.Sharded`)."""
     from tame_torch.parallel.mesh import Sharded
 
-    if isinstance(Y, Sharded):
-        raise NotImplementedError(
-            f"{entry} has no sharded engine yet (listed under ROADMAP A.9); "
-            f"pass the whole network as a tensor")
+    return isinstance(x, Sharded)
+
+
+def refuse_mu_dyadic(mu_dyadic) -> None:
+    if mu_dyadic is not None:
+        raise ValueError("mu_dyadic: a sharded ELBO computes the means of "
+                         "each rank's rows itself; pass None")
 
 
 def _sharded(Y, init) -> bool:
     """Whether a fit's inputs are sharded over a mesh (both, or neither:
     a mix raises ``TypeError``)."""
-    from tame_torch.parallel.mesh import Sharded
-
-    sharded = isinstance(Y, Sharded), isinstance(init, Sharded)
+    sharded = is_sharded(Y), is_sharded(init)
     if sharded[0] != sharded[1]:
         raise TypeError("Y and the initial state must both be sharded "
                         "(tame_torch.parallel.shard_fit_inputs) or both "

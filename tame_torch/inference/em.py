@@ -104,6 +104,54 @@ def _pair_sum(Xi: torch.Tensor, Zj: torch.Tensor) -> torch.Tensor:
     return torch.sum(Xi.sum(0) * Zj.sum(0)) - torch.sum(Xi * Zj)
 
 
+_PARTNERS = ("V", "U", "VV", "UU", "Cr", "VU", "SUVt")
+
+
+def _flat(M: torch.Tensor) -> torch.Tensor:
+    """(n, T, r, r) -> (n, T, r^2)."""
+    return M.reshape(M.shape[:2] + (-1,))
+
+
+def _mean_panels(mu: torch.Tensor, r: int) -> Dict[str, torch.Tensor]:
+    """The partner panels of the pair sums that read the means."""
+    _, _, U, V = dyad_ops.split_state(mu, r)
+    return {"V": V, "U": U,
+            "VV": _flat(V[..., :, None] * V[..., None, :]),
+            "UU": _flat(U[..., :, None] * U[..., None, :]),
+            "VU": _flat(V[..., :, None] * U[..., None, :])}
+
+
+def _cov_panels(S: torch.Tensor, r: int) -> Dict[str, torch.Tensor]:
+    """The partner panels of the pair sums that read the covariances."""
+    return {"Cr": _flat(S[..., 2 + r:, 2 + r:]),
+            "SUVt": _flat(S[..., 2:2 + r, 2 + r:].transpose(-1, -2))}
+
+
+def _own_panels(S: torch.Tensor, r: int) -> Dict[str, torch.Tensor]:
+    """The node-side panels ``x_i`` of the pair sums, from the
+    covariances of the nodes i."""
+    C = _flat(S[..., 2:2 + r, 2:2 + r])
+    return {"S0U": S[..., 0, 2:2 + r], "C": C, "S1V": S[..., 1, 2 + r:],
+            "Cr": _flat(S[..., 2 + r:, 2 + r:]), "S0V": S[..., 0, 2 + r:],
+            "SU1": S[..., 2:2 + r, 1], "SUV": _flat(S[..., 2:2 + r, 2 + r:])}
+
+
+def _correction_sums(S: torch.Tensor, cnt, pair
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sum var_q, sum cov_q)`` over the nodes i of ``S`` (their
+    covariances): ``cnt`` counts each node's partners and ``pair(x, z)``
+    is the pair sum of its own panel ``x`` (:func:`_own_panels`) against
+    the partner panel ``z``."""
+    var_sum = (torch.sum(cnt * (S[..., 0, 0] + S[..., 1, 1]))
+               + 2.0 * pair("S0U", "V") + pair("C", "VV")
+               + 2.0 * pair("S1V", "U") + pair("Cr", "UU")
+               + pair("C", "Cr"))
+    cross_sum = (2.0 * (torch.sum(cnt * S[..., 0, 1]) + pair("S0V", "U")
+                        + pair("SU1", "V") + pair("SUV", "VU"))
+                 + pair("SUV", "SUVt"))
+    return var_sum, cross_sum
+
+
 def _residual_moment_corrections(state: SmoothedState, m=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact posterior-variance corrections to the plug-in residual
@@ -123,43 +171,31 @@ def _residual_moment_corrections(state: SmoothedState, m=None
     mu, S = state.X_mean, state.X_cov
     n, T, d = mu.shape
     r = (d - 2) // 2
-    _, _, U, V = dyad_ops.split_state(mu, r)
-
-    def flat(M):
-        return M.reshape(n, T, r * r)
-
-    SUV = S[..., 2:2 + r, 2 + r:]
-    partners = {"V": V, "U": U,
-                "VV": flat(V[..., :, None] * V[..., None, :]),
-                "UU": flat(U[..., :, None] * U[..., None, :]),
-                "Cr": flat(S[..., 2 + r:, 2 + r:]),
-                "VU": flat(V[..., :, None] * U[..., None, :]),
-                "SUVt": flat(SUV.transpose(-1, -2))}
+    panels = {**_mean_panels(mu, r), **_cov_panels(S, r)}
+    partners = {k: panels[k] for k in _PARTNERS}
+    own = _own_panels(S, r)
     if m is None:
         cnt = float(n - 1)
 
-        def pair(Xi, key):
-            return _pair_sum(Xi, partners[key])
+        def pair(x, key):
+            return _pair_sum(own[x], partners[key])
     else:
         cnt = m.sum(1)                       # m symmetric: col sums = cnt
-        Mz = dict(zip(partners, cavi._mask_contract(
-            m, torch.cat(list(partners.values()), -1)).split(
-                [z.shape[-1] for z in partners.values()], -1)))
+        pair = _masked_pair(m, partners, own)
+    return _correction_sums(S, cnt, pair)
 
-        def pair(Xi, key):
-            return torch.sum(Xi * Mz[key])
 
-    C = flat(S[..., 2:2 + r, 2:2 + r])
-    var_sum = (torch.sum(cnt * (S[..., 0, 0] + S[..., 1, 1]))
-               + 2.0 * pair(S[..., 0, 2:2 + r], "V") + pair(C, "VV")
-               + 2.0 * pair(S[..., 1, 2 + r:], "U")
-               + pair(partners["Cr"], "UU") + pair(C, "Cr"))
-    cross_sum = (2.0 * (torch.sum(cnt * S[..., 0, 1])
-                        + pair(S[..., 0, 2 + r:], "U")
-                        + pair(S[..., 2:2 + r, 1], "V")
-                        + pair(flat(SUV), "VU"))
-                 + pair(flat(SUV), "SUVt"))
-    return var_sum, cross_sum
+def _masked_pair(m, partners: Dict[str, torch.Tensor],
+                 own: Dict[str, torch.Tensor]):
+    """The pair sums ``sum_i x_i . (m z)_i`` of the mask rows ``m`` (m, n,
+    T) against every partner panel, contracted at once."""
+    Mz = dict(zip(partners, cavi._mask_contract(
+        m, torch.cat(list(partners.values()), -1)).split(
+            [z.shape[-1] for z in partners.values()], -1)))
+
+    def pair(x, key):
+        return torch.sum(own[x] * Mz[key])
+    return pair
 
 
 def _phi_groups(phi_structure: str, d: int):
@@ -193,7 +229,31 @@ def em_update_params(params: AMEParams, Y: torch.Tensor,
 
     ``r_structure``: ``"exchangeable"`` learns (sigma^2, rho);
     ``"diag"`` pins rho at zero.
+
+    A sharded ``Y`` and ``state`` (:func:`tame_torch.parallel.
+    shard_smoothed_inputs`, a sharded fit's ``field("state")``; ``mask``
+    the whole mask) sum every moment over the mesh's ranks
+    (:func:`tame_torch.parallel.sharded_em.em_moments`); the solves run on
+    the summed moments, so the parameters come out the same on every
+    rank.
     """
+    _check_m_step(learn, r_structure)
+    if cavi._sharded(Y, state):
+        from tame_torch.parallel.sharded_em import em_moments
+
+        n, T, d, moments, resid = em_moments(Y, state, mask, "R" in learn)
+        params = params.to(Y.mesh.device)
+    else:
+        n, T, d = state.X_mean.shape
+        moments, resid = _transition_moments(state), None
+        if "R" in learn:
+            resid = (*_residual_moments(Y, state.X_mean, mask),
+                     *_residual_moment_corrections(state, mask))
+    return m_step(params, n, T, d, moments, resid, learn=learn,
+                  phi_structure=phi_structure, r_structure=r_structure)
+
+
+def _check_m_step(learn, r_structure: str) -> None:
     unknown = set(learn) - set(LEARNABLE)
     if unknown:
         raise ValueError(f"unknown learnable(s) {sorted(unknown)}; "
@@ -201,9 +261,16 @@ def em_update_params(params: AMEParams, Y: torch.Tensor,
     if r_structure not in ("exchangeable", "diag"):
         raise ValueError(f"unknown r_structure {r_structure!r}; choose "
                          "from 'exchangeable', 'diag'")
-    n, T, d = state.X_mean.shape
-    A, B, Sxx, S00 = _transition_moments(state)
 
+
+def m_step(params: AMEParams, n: int, T: int, d: int, moments, resid, *,
+           learn: Sequence[str], phi_structure: str,
+           r_structure: str) -> AMEParams:
+    """The closed forms of :func:`em_update_params` from the summed
+    moments: the transition moments ``(A, B, Sxx, S00)`` and, when R is
+    learned, the residual statistics and their corrections ``(sq, cross,
+    count, var_corr, cross_corr)``, over ``n`` nodes and ``T`` steps."""
+    A, B, Sxx, S00 = moments
     Phi, Q, Sigma0 = params.Phi, params.Q, params.Sigma0
     if "phi" in learn and T > 1:
         groups = _phi_groups(phi_structure, d)
@@ -223,8 +290,7 @@ def em_update_params(params: AMEParams, Y: torch.Tensor,
         Sigma0 = _sym(S00 / n, 1e-6)
     R, R_inv = params.R, params.R_inv
     if "R" in learn:
-        sq, cross, count = _residual_moments(Y, state.X_mean, mask)
-        var_corr, cross_corr = _residual_moment_corrections(state, mask)
+        sq, cross, count, var_corr, cross_corr = resid
         sigma2 = torch.clamp((sq + var_corr) / count, min=1e-8)
         if r_structure == "diag":
             rho = torch.zeros_like(sigma2)
@@ -284,8 +350,13 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
     Returns :class:`EMResult`; ``history`` tracks ``elbo`` (final inner
     ELBO per EM iteration) and the learned scalars (``phi_mult``, the last
     latent dimension's rate, for non-scalar ``phi_structure``).
+
+    ``Y`` from :func:`tame_torch.parallel.shard_smoothed_inputs` (a mesh
+    over ``nodes``; ``mask`` the whole mask, ``init`` a sharded state)
+    runs every step sharded: the warm init, the E-steps and the M-step's
+    moments over the ranks' nodes, the parameters and every decision
+    (backoff, stop) replicated.  ``state`` is then sharded too.
     """
-    cavi.refuse_sharded(Y, "fit_em")
     if isinstance(family, str):
         if family not in ("gaussian", "bernoulli", "poisson"):
             raise ValueError(f"unknown family {family!r}; choose from "
@@ -297,9 +368,13 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
     gaussian = isinstance(family, str) and family == "gaussian"
     if not gaussian:
         learn = tuple(k for k in learn if k != "R")
-    n, _, T, _ = Y.shape
-    if mask is not None:
-        mask = cavi.gated_mask(mask, Y)
+    sharded = cavi.is_sharded(Y)
+    if sharded:
+        n, T = Y.sizes["nodes"], Y.sizes["time"]
+    else:
+        n, _, T, _ = Y.shape
+        if mask is not None:
+            mask = cavi.gated_mask(mask, Y)
     params = params0
     if init is not None:
         state = init
@@ -307,6 +382,12 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
         state = warm_init_smoothed_family(Y, params0, family, obs_mask=mask)
     elif init_mode == "warm":
         state = warm_init_smoothed_state(Y, params0, obs_mask=mask)
+    elif sharded:
+        from tame_torch.parallel.mesh import place_smoothed_state
+
+        state = place_smoothed_state(Y.mesh, init_smoothed_state(
+            torch.Generator().manual_seed(seed), n, T, params0.d, 0.1),
+            Y.sizes)
     else:
         state = init_smoothed_state(torch.Generator().manual_seed(seed), n,
                                     T, params0.d, 0.1, device=Y.device)
@@ -369,7 +450,7 @@ def fit_em(Y: torch.Tensor, params0: AMEParams, *,
                       "stopping with the last finite iterate", flush=True)
             break
         prev_elbo = e
-        state = out.state
+        state = out.field("state") if sharded else out.state
         params = em_update_params(params, Y, state, learn=learn, mask=mask,
                                   phi_structure=phi_structure,
                                   r_structure=r_structure)

@@ -65,20 +65,29 @@ def warm_init_smoothed_family(Y: torch.Tensor, params: AMEParams, family,
     """Link-linearized warm start: pseudo-Gaussian observations of the
     predictor (``4 (y - 1/2)`` for Bernoulli, ``log(y + 1/2)`` for
     Poisson, a custom family's ``warm_transform(Y)`` if it declares one,
-    else ``Y``) through the Gaussian closed-form warm start."""
-    cavi.refuse_sharded(Y, "warm_init_smoothed_family")
+    else ``Y``) through the Gaussian closed-form warm start.  A sharded
+    ``Y`` (:func:`tame_torch.parallel.shard_smoothed_inputs`) transforms
+    each rank's piece and returns a sharded state."""
+    if cavi.is_sharded(Y):
+        Z = Y._replace(local=_warm_transform(Y.local, family))
+    else:
+        Z = _warm_transform(Y, family)
+    return warm_init_smoothed_state(Z, params, obs_mask=obs_mask)
+
+
+def _warm_transform(Y: torch.Tensor, family) -> torch.Tensor:
+    """The pseudo-Gaussian observations of a family's predictor
+    (elementwise)."""
     if family == "bernoulli":
-        Z = 4.0 * (Y - 0.5)
-    elif family == "poisson":
-        Z = torch.log(Y + 0.5)
-    elif isinstance(family, str):
+        return 4.0 * (Y - 0.5)
+    if family == "poisson":
+        return torch.log(Y + 0.5)
+    if isinstance(family, str):
         raise ValueError(f"unknown family {family!r}; choose from "
                          f"{FAMILIES}")
-    elif hasattr(family, "warm_transform"):
-        Z = family.warm_transform(Y)
-    else:
-        Z = Y
-    return warm_init_smoothed_state(Z, params, obs_mask=obs_mask)
+    if hasattr(family, "warm_transform"):
+        return family.warm_transform(Y)
+    return Y
 
 
 def _evaluate(family, state: SmoothedState, y0, offd, pri, params):
@@ -135,9 +144,22 @@ def fit_smoothed_family(Y: torch.Tensor, params: AMEParams,
     ``vi_surrogate`` (:mod:`tame_torch.models.likelihoods`; it receives
     time-major (T, n, n) tensors); ``mask``: optional (n, n, T)
     observation gate (hidden dyads are never read).  One K4 launch per
-    iteration on the card."""
-    cavi.refuse_sharded(Y, "fit_smoothed_family")
+    iteration on the card.
+
+    ``Y`` and ``init`` from :func:`tame_torch.parallel.shard_smoothed_inputs`
+    (``mask`` the whole mask) run the fit sharded over the mesh's nodes
+    (:func:`tame_torch.parallel.sharded_family.fit_smoothed_family_sharded`;
+    one K4 launch per iteration on each rank's nodes)."""
     family = _resolve_family(family)
+    if cavi._sharded(Y, init):
+        from tame_torch.parallel.sharded_family import (
+            fit_smoothed_family_sharded,
+        )
+
+        return fit_smoothed_family_sharded(
+            Y, params, init, family=family, max_iter=max_iter,
+            learning_rate=learning_rate, tolerance=tolerance,
+            patience=patience, mask=mask)
     fi = family_inputs(Y, mask)
     params = params.to(Y.device, Y.dtype)
     pri = cavi.precompute_priors(params)

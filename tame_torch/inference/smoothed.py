@@ -106,8 +106,19 @@ def warm_init_smoothed_state(Y: torch.Tensor, params: AMEParams,
     """Data-driven warm start: the centroid decomposition of
     :func:`tame_torch.inference.cavi.warm_init_state` (``probe`` /
     ``generator`` as there) with the smoothed family's deterministic
-    covariances."""
-    cavi.refuse_sharded(Y, "warm_init_smoothed_state")
+    covariances.
+
+    A sharded ``Y`` (:func:`tame_torch.parallel.shard_smoothed_inputs`)
+    returns the state as that function places one
+    (:func:`tame_torch.parallel.sharded_init.warm_init_smoothed_sharded`).
+    """
+    if cavi.is_sharded(Y):
+        from tame_torch.parallel.sharded_init import (
+            warm_init_smoothed_sharded,
+        )
+
+        return warm_init_smoothed_sharded(Y, params, obs_mask=obs_mask,
+                                          probe=probe, generator=generator)
     warm = cavi.warm_init_state(Y, params, structure="full",
                                 obs_mask=obs_mask, probe=probe,
                                 generator=generator)
@@ -208,7 +219,13 @@ def smoothed_elbo(Y: torch.Tensor, params: AMEParams,
     the likelihood uses the structured engines' plug-in + trace-correction
     convention, so values are comparable to Good SMF.  Under ``obs_mask``
     it runs over observed dyads (NaN-coded hidden entries are never
-    read)."""
+    read).  A sharded ``Y`` and ``state`` sum each rank's nodes
+    (:func:`tame_torch.parallel.sharded_cavi.smoothed_elbo_sharded`)."""
+    if cavi._sharded(Y, state):
+        from tame_torch.parallel.sharded_cavi import smoothed_elbo_sharded
+
+        cavi.refuse_mu_dyadic(mu_dyadic)
+        return smoothed_elbo_sharded(Y, params, pri, state, obs_mask)
     n, T, d = state.X_mean.shape
     r = (d - 2) // 2
     if obs_mask is None:

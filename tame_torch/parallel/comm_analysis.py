@@ -44,18 +44,74 @@ def count_iteration(mesh, n: int, T: int, r: int, *,
     Y = torch.zeros(()).expand(n, n, T, 2)   # sliced per rank, no copy
     mask = torch.ones(()).expand(n, n, T) if masked else None
     Y_s, init_s = shard_fit_inputs(mesh, Y, init)
+    return _one_iteration(mesh, lambda iters: cavi.fit_cavi(
+        Y_s, params, init_s, structure=structure, update_mode=update_mode,
+        num_blocks=num_blocks, diag_mode=diag_mode,
+        mixed_precision=mixed_precision, mask=mask, max_iter=iters,
+        tolerance=0.0))
+
+
+def _runs(mesh, fit):
+    """The collectives of ``fit(1)`` and of ``fit(2)``."""
     stats = []
     for iters in (1, 2):
         mesh.comm.reset()
-        cavi.fit_cavi(Y_s, params, init_s, structure=structure,
-                      update_mode=update_mode, num_blocks=num_blocks,
-                      diag_mode=diag_mode, mixed_precision=mixed_precision,
-                      mask=mask, max_iter=iters, tolerance=0.0)
+        fit(iters)
         stats.append(mesh.comm.stats())
-    one, two = stats
-    return {k: {f: two[k][f] - one.get(k, {}).get(f, 0)
-                for f in ("count", "bytes")}
-            for k in two if two[k]["count"] > one.get(k, {}).get("count", 0)}
+    return stats
+
+
+def _combine(*terms) -> Dict[str, Dict[str, int]]:
+    """``sum_k c_k stats_k`` over ``(c_k, stats_k)`` pairs, by kind; kinds
+    that come to no call are dropped."""
+    out: Dict[str, Dict[str, int]] = {}
+    for c, stats in terms:
+        for k, v in stats.items():
+            for f in ("count", "bytes"):
+                out.setdefault(k, {"count": 0, "bytes": 0})[f] += c * v[f]
+    return {k: v for k, v in out.items() if v["count"] > 0}
+
+
+def _one_iteration(mesh, fit) -> Dict[str, Dict[str, int]]:
+    """The collectives of one iteration: ``fit(2)``'s less ``fit(1)``'s."""
+    one, two = _runs(mesh, fit)
+    return _combine((1, two), (-1, one))
+
+
+def count_em_iteration(mesh, n: int, T: int, r: int, inner: int, *,
+                       masked: bool = False) -> Dict[str, Dict]:
+    """This rank's collectives in one iteration of the sharded Gaussian
+    ``fit_em`` on a ``nodes`` mesh at (n, T, r) whose E-step runs
+    ``inner`` iterations: ``e_step_setup`` (the E-step's gather of its
+    initial means; under a mask, its counts), ``e_step_iteration`` (its
+    block phases' all-gathers and the ELBO's all-reduce), ``m_step`` (the
+    means' all-gather, the corrections' column sums or, under a mask,
+    covariance panels, one all-reduce of every sum) and ``em_iteration``:
+    the setup, ``inner`` iterations and the M-step.  Counted on
+    zero-valued data, as :func:`count_iteration` counts."""
+    from tame_torch.config import ModelConfig
+    from tame_torch.inference import em, smoothed
+    from tame_torch.models import build_params
+    from tame_torch.parallel.mesh import shard_smoothed_inputs
+
+    params = build_params(ModelConfig(n_nodes=n, n_time=T, latent_dim=r,
+                                      seed=0))
+    init = smoothed.init_smoothed_state(torch.Generator().manual_seed(0), n,
+                                        T, params.d)
+    Y = torch.zeros(()).expand(n, n, T, 2)   # sliced per rank, no copy
+    mask = torch.ones(()).expand(n, n, T) if masked else None
+    Y_s, init_s = shard_smoothed_inputs(mesh, Y, init)
+    one, two = _runs(mesh, lambda iters: smoothed.fit_cavi_smoothed(
+        Y_s, params, init_s, mask=mask, max_iter=iters, tolerance=0.0))
+    mesh.comm.reset()
+    em.em_update_params(params, Y_s, init_s, mask=mask)
+    m_step = mesh.comm.stats()
+    step = _combine((1, two), (-1, one))
+    setup = _combine((1, one), (-1, step))
+    return {"e_step_setup": setup, "e_step_iteration": step,
+            "m_step": m_step,
+            "em_iteration": _combine((1, setup), (inner, step),
+                                     (1, m_step))}
 
 
 def _count_rank(rank: int, n: int, T: int, r: int, nodes: int,

@@ -20,7 +20,9 @@ JAX places global arrays and lets GSPMD partition the program; here the
 placement is explicit.  :func:`shard_fit_inputs` returns :class:`Sharded`
 values holding this rank's pieces, which the fit entry points recognise
 and send to the sharded engines (:mod:`tame_torch.parallel.sharded_cavi`,
-:mod:`tame_torch.parallel.sharded_family`).
+:mod:`tame_torch.parallel.sharded_family`); the warm inits, the ELBOs and
+EM take them too (:mod:`tame_torch.parallel.sharded_init`,
+:mod:`tame_torch.parallel.sharded_em`).
 """
 
 from __future__ import annotations
@@ -69,6 +71,12 @@ class Mesh:
         """The coordinates of the whole-mesh group's member ``group_rank``
         (the order of :meth:`Collectives.all_gather` on ``"mesh"``)."""
         return self._by_group_rank[group_rank]
+
+    def axis_index(self, axis: str, group_rank: int) -> int:
+        """The index on ``axis`` of member ``group_rank`` of this rank's
+        group on ``axis`` (the order of its all-gathers)."""
+        member = self.comm.members[axis][group_rank]
+        return int(np.argwhere(self.ranks == member)[0][AXES.index(axis)])
 
     def piece(self, axis: str, size: int, index: Optional[int] = None
               ) -> slice:
@@ -245,6 +253,13 @@ class Sharded(NamedTuple):
     def __getattr__(self, name):
         return getattr(self.local, name)
 
+    def field(self, name: str) -> "Sharded":
+        """The sharded value of one field of a sharded NamedTuple: a
+        sharded fit result's ``state``, say, which ``result.state`` reads
+        as this rank's pieces alone."""
+        return Sharded(getattr(self.local, name), self.mesh, self.sizes,
+                       self.spec[name])
+
     def full(self):
         return _gather_tree(self.mesh, self.local, self.spec, self.sizes)
 
@@ -311,35 +326,38 @@ def place_mask(Y: Sharded, mask) -> torch.Tensor:
     return m * off[:, :, None]
 
 
-def shard_fit_inputs(mesh: Mesh, Y, state):
+def shard_fit_inputs(mesh: Mesh, Y, state=None):
     """Place CAVI (and Bernoulli, Poisson) fit inputs on the mesh:
     ``(Y_s, state_s)``, this rank's rows and time slice of ``Y`` (n, n, T,
     2) and of the state's ``X_mean``/``X_cov``, on this rank's device.
     ``fit_cavi``, ``fit_cavi_bernoulli`` and ``fit_cavi_poisson`` take
-    them in place of tensors and run sharded."""
+    them in place of tensors and run sharded.  Without a ``state``,
+    ``state_s`` is None: ``cavi.warm_init_state(Y_s, params)`` makes one
+    placed so, from each rank's rows alone."""
     from tame_torch.inference.cavi import CaviState
 
     _fit_mesh(mesh)
     n, _, T = Y.shape[:3]
     sizes = {"nodes": n, "time": T}
     rows, ts = mesh.piece("nodes", n), mesh.piece("time", T)
-    obs = obs_sharding(mesh).spec
+    Y_s = Sharded(_place(Y, mesh, (rows, slice(None), ts)), mesh, sizes,
+                  obs_sharding(mesh).spec)
+    if state is None:
+        return Y_s, None
     local = CaviState(X_mean=_place(state.X_mean, mesh, (rows, ts)),
                       X_cov=_place(state.X_cov, mesh, (rows, ts)))
     spec = {"X_mean": state_sharding(mesh).spec,
             "X_cov": cov_sharding(mesh).spec}
-    return (Sharded(_place(Y, mesh, (rows, slice(None), ts)), mesh, sizes,
-                    obs),
-            Sharded(local, mesh, sizes, spec))
+    return Y_s, Sharded(local, mesh, sizes, spec)
 
 
-def shard_smoothed_inputs(mesh: Mesh, Y, state):
+def shard_smoothed_inputs(mesh: Mesh, Y, state=None):
     """Place smoothed-engine fit inputs on the mesh.  A node's update is a
     block-tridiagonal solve over its whole trajectory, so the smoothed
     family shards over ``nodes`` only: the observation rows and every
-    per-node state tensor split on the node axis, time whole."""
-    from tame_torch.inference.smoothed import SmoothedState
-
+    per-node state tensor split on the node axis, time whole.  Without a
+    ``state`` the second value is None (the warm inits make one from
+    ``Y_s``)."""
     _fit_mesh(mesh)
     if mesh.shape["time"] != 1:
         raise ValueError(
@@ -347,14 +365,28 @@ def shard_smoothed_inputs(mesh: Mesh, Y, state):
             "with time=1")
     n = Y.shape[0]
     sizes = {"nodes": n, "time": Y.shape[2]}
-    rows = (mesh.piece("nodes", n),)
+    Y_s = Sharded(_place(Y, mesh, (mesh.piece("nodes", n),)), mesh, sizes,
+                  ("nodes", None, None, None))
+    return Y_s, (None if state is None
+                 else place_smoothed_state(mesh, state, sizes))
+
+
+def smoothed_spec(state) -> dict:
+    """The placement of a smoothed state's pieces: every field split on
+    its node axis."""
+    return {f: ("nodes",) + (None,) * (getattr(state, f).dim() - 1)
+            for f in state._fields}
+
+
+def place_smoothed_state(mesh: Mesh, state, sizes: dict) -> Sharded:
+    """This rank's rows of a whole smoothed state (``SmoothedState``, on
+    the host or a device) as :func:`shard_smoothed_inputs` places them."""
+    from tame_torch.inference.smoothed import SmoothedState
+
+    rows = (mesh.piece("nodes", sizes["nodes"]),)
     local = SmoothedState(*(_place(getattr(state, f), mesh, rows)
                             for f in SmoothedState._fields))
-    spec = {f: ("nodes",) + (None,) * (getattr(local, f).dim() - 1)
-            for f in SmoothedState._fields}
-    return (Sharded(_place(Y, mesh, rows), mesh, sizes,
-                    ("nodes", None, None, None)),
-            Sharded(local, mesh, sizes, spec))
+    return Sharded(local, mesh, sizes, smoothed_spec(local))
 
 
 # ---------------------------------------------------------------------------

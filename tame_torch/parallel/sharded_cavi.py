@@ -125,6 +125,19 @@ class Geometry:
             X[rows, ts] = piece[:slice_len(rows, self.n),
                                 :slice_len(ts, self.T)]
 
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The (n, ...) tensor of which every ``nodes`` rank holds its rows
+        ``x`` (the time ranks of a row hold the same): one padded
+        all-gather over the ``nodes`` axis, so every rank builds the same
+        bits."""
+        mesh = self.mesh
+        pad = (-(-self.n // self.nodes),) + tuple(x.shape[1:])
+        out = x.new_empty((self.n,) + tuple(x.shape[1:]))
+        for g, piece in enumerate(mesh.comm.all_gather(x, "nodes", pad)):
+            rows = mesh.piece("nodes", self.n, mesh.axis_index("nodes", g))
+            out[rows] = piece[:slice_len(rows, self.n)]
+        return out
+
 
 def phases(n: int, update_mode: str, num_blocks):
     """The node ranges updated in turn: the blocks for block Gauss-Seidel,
@@ -161,13 +174,41 @@ def rank_inputs(Y: Sharded, R_inv: torch.Tensor, mask, geo: Geometry,
         fi = fi._replace(dc=cavi.DiagConstants(
             sum_y0_sq=torch.sum(y0 * y0), sum_y0_y0T=torch.sum(y0 * y1),
             row_y0=y0.sum(1), col_y0=y1.sum(1)))
-    if m is None:
-        return fi._replace(mse_norm=geo.n * (geo.n - 1) * geo.T)
-    n_obs, total = Y.mesh.comm.all_reduce(
-        torch.stack([fi.mask_stats[0], m.sum()]), "mesh")
-    if cavi.packed_mask_requested():
+    if m is not None and cavi.packed_mask_requested():
         fi = fi._replace(mask_c=cavi.PackedRows(masked_contract.pack_rows(
             m, [geo.local(geo.share(lo, hi)) for lo, hi in steps])))
+    return network_counts(fi, geo)
+
+
+def observed_inputs(Y: Sharded, mask, geo: Geometry) -> cavi.FitInputs:
+    """What the ELBOs and moments read of this rank's piece, without the
+    fits' weights: its observations (zeroed where hidden, with ``where``),
+    its mask rows and the whole network's counts."""
+    Yl, m = rank_observed(Y, mask)
+    return network_counts(cavi.FitInputs(
+        Y=Yl, obs=None, dc=None, mask=m, mask_c=m,
+        mask_stats=None if m is None else cavi._mask_stats(m),
+        mse_norm=None), geo)
+
+
+def rank_observed(Y: Sharded, mask):
+    """``(Y, m)``: this rank's piece of ``Y``, zeroed with ``where`` at
+    its hidden dyads, and its rows of the whole ``mask`` (None without
+    one)."""
+    if mask is None:
+        return Y.local, None
+    m = place_mask(Y, mask)
+    return torch.where(m[..., None] > 0, Y.local, torch.zeros(
+        (), dtype=Y.local.dtype, device=Y.local.device)), m
+
+
+def network_counts(fi: cavi.FitInputs, geo: Geometry) -> cavi.FitInputs:
+    """``fi`` with the whole network's observed dyad-times and MSE count
+    (one all-reduce under a mask)."""
+    if fi.mask is None:
+        return fi._replace(mse_norm=geo.n * (geo.n - 1) * geo.T)
+    n_obs, total = geo.mesh.comm.all_reduce(
+        torch.stack([fi.mask_stats[0], fi.mask.sum()]), "mesh")
     return fi._replace(mask_stats=(n_obs, fi.mask_stats[1]),
                        mse_norm=torch.clamp(total, min=1.0))
 
@@ -186,6 +227,27 @@ def phase_contract(fi: cavi.FitInputs, k: int, loc: slice):
     return lambda Z: cavi._eta_contract(rows, Z)
 
 
+def rows_means(X: torch.Tensor, geo: Geometry, r: int):
+    """``(fwd, bwd)`` (m, n, T_local) of this rank's rows: ``fwd[i, j] =
+    a_i + b_j + U_i . V_j`` and the reciprocal ``bwd[i, j] = fwd[j, i]``
+    (a transpose where the rank holds every row)."""
+    a, b, U, V = dyad_ops.split_state(X[:, geo.ts], r)
+    rows = geo.rows
+    fwd = (a[rows][:, None, :] + b[None, :, :]
+           + torch.einsum("...itr,...jtr->...ijt", U[rows], V))
+    if geo.nodes == 1:
+        return fwd, fwd.transpose(0, 1)
+    bwd = (a[None, :, :] + b[rows][:, None, :]
+           + torch.einsum("...jtr,...itr->...ijt", U, V[rows]))
+    return fwd, bwd
+
+
+def off_diagonal(geo: Geometry, like: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of the off-diagonal mask, (m, n, 1)."""
+    ids = torch.arange(geo.n, device=like.device)
+    return (ids[None, :] != ids[geo.rows][:, None]).to(like.dtype)[..., None]
+
+
 def residual_partials(Yl: torch.Tensor, X: torch.Tensor, geo: Geometry,
                       r: int, mask=None):
     """``(sq, cross)`` of :func:`tame_torch.ops.dyad.residual_stats_from_fwd`
@@ -194,20 +256,28 @@ def residual_partials(Yl: torch.Tensor, X: torch.Tensor, geo: Geometry,
     y_ij - m_ij`` from ``Yl[..., 0]``; its partner ``e0[j, i]`` is a
     transpose where the rank holds every row, else ``y_ji - m_ji`` from
     the reciprocal component ``Yl[..., 1]``."""
-    a, b, U, V = dyad_ops.split_state(X[:, geo.ts], r)
-    rows = geo.rows
-    fwd = (a[rows][:, None, :] + b[None, :, :]
-           + torch.einsum("...itr,...jtr->...ijt", U[rows], V))
+    fwd, bwd = rows_means(X, geo, r)
     if mask is None:
-        ids = torch.arange(geo.n, device=Yl.device)
-        mask = (ids[None, :] != ids[rows][:, None]).to(Yl.dtype)[..., None]
+        mask = off_diagonal(geo, Yl)
     e0 = (Yl[..., 0] - fwd) * mask
     if geo.nodes == 1:
         return torch.sum(e0 * e0), torch.sum(e0 * e0.transpose(0, 1))
-    bwd = (a[None, :, :] + b[rows][:, None, :]
-           + torch.einsum("...jtr,...itr->...ijt", U, V[rows]))
     e1 = (Yl[..., 1] - bwd) * mask
     return torch.sum(e0 * e0), torch.sum(e0 * e1)
+
+
+def rank_quad(fi: cavi.FitInputs, X: torch.Tensor, geo: Geometry, r: int,
+              R_inv: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the public ELBOs' quadratic form (``quad_sum``
+    of :func:`tame_torch.inference.cavi.compute_elbo`): both components of
+    its rows' residuals against ``R^-1``, halved, over its off-diagonal
+    or observed dyads."""
+    fwd, bwd = rows_means(X, geo, r)
+    e0, e1 = fi.Y[..., 0] - fwd, fi.Y[..., 1] - bwd
+    p_, q_ = R_inv[0, 0], R_inv[0, 1]
+    quad = p_ * (e0 * e0 + e1 * e1) + 2.0 * q_ * (e0 * e1)
+    mask = off_diagonal(geo, fi.Y) if fi.mask is None else fi.mask
+    return 0.5 * torch.sum(quad * mask)
 
 
 def rank_residual_stats(fi: cavi.FitInputs, X: torch.Tensor, geo: Geometry,
@@ -240,6 +310,37 @@ def likelihood_counts(fi: cavi.FitInputs, n: int, T: int, wtr):
     return fi.mask_stats[0], wtr
 
 
+def sharded_elbo(fi: cavi.FitInputs, geo: Geometry, params,
+                 pri: cavi.PriorMatrices, lik, X_cov: torch.Tensor,
+                 model_terms, structure: str):
+    """The whole network's ELBO from this rank's shares, the same on every
+    rank (one all-reduce of the sums), with the reduced likelihood sums.
+
+    ``lik``: the rank's residual sums ``(sq, cross)`` (the quadratic form
+    ``p sq + q cross``, as the fits compute it) or its ``(quad_sum,)``;
+    ``X_cov`` its covariances, whose traces the structured correction
+    weighs; ``model_terms`` the prior terms and entropy of its factors;
+    ``structure`` a CAVI policy, or ``"smoothed"`` for the smoothed
+    family's correction (:func:`~tame_torch.inference.smoothed.
+    smoothed_elbo_from_terms`)."""
+    k = len(lik)
+    parts = geo.mesh.comm.all_reduce(torch.stack(
+        [*lik, weighted_trace(fi, X_cov), *model_terms]), "mesh")
+    n_dyads, wsum = likelihood_counts(fi, geo.n, geo.T, parts[k])
+    quad = (params.R_inv[0, 0] * parts[0] + params.R_inv[0, 1] * parts[1]
+            if k == 2 else parts[0])
+    prior0, priort, ent = parts[k + 1:]
+    d = X_cov.shape[-1]
+    if structure == "smoothed":
+        elbo = sm.smoothed_elbo_from_terms(quad, n_dyads, wsum, prior0,
+                                           priort, ent, params, pri, d)
+    else:
+        elbo = cavi.elbo_from_terms(
+            quad, n_dyads, wsum if structure in ("full", "block") else None,
+            prior0, priort, ent, params, pri, d)
+    return elbo, parts[:k]
+
+
 def prior_partials(params, pri: cavi.PriorMatrices, Xr: torch.Tensor,
                    cov: torch.Tensor, t0: int):
     """``cavi.state_prior_terms`` over this rank's rows and time slice:
@@ -265,6 +366,14 @@ def prior_partials(params, pri: cavi.PriorMatrices, Xr: torch.Tensor,
     return prior0, priort
 
 
+def cavi_terms(params, pri: cavi.PriorMatrices, X: torch.Tensor,
+               X_cov: torch.Tensor, geo: Geometry):
+    """The prior terms and the entropy (K2) of this rank's mean-field
+    factors: its rows of the replicated means ``X``, its covariances."""
+    return (*prior_partials(params, pri, X[geo.rows], X_cov, geo.ts.start),
+            cavi.gaussian_entropy(cavi.CaviState(X[geo.rows, geo.ts], X_cov)))
+
+
 def replicated_means(init: Sharded, field: str = "X_mean") -> torch.Tensor:
     """The whole means tensor from every rank's piece of a sharded state."""
     return gather(init.mesh, getattr(init.local, field), init.spec[field],
@@ -274,6 +383,61 @@ def replicated_means(init: Sharded, field: str = "X_mean") -> torch.Tensor:
 def _check(Y, init) -> None:
     if Y.mesh is not init.mesh:
         raise ValueError("Y and the initial state lie on different meshes")
+
+
+def nodes_only(mesh) -> None:
+    """The smoothed family's trajectories are whole on a rank: refuse a
+    mesh that splits time."""
+    if mesh.shape["time"] != 1:
+        raise ValueError("the smoothed engine shards over 'nodes' only; "
+                         "build the mesh with time=1")
+
+
+def on_mesh(mesh, pri: cavi.PriorMatrices) -> cavi.PriorMatrices:
+    return cavi.PriorMatrices(*(t.to(mesh.device) for t in pri))
+
+
+def compute_elbo_sharded(Y: Sharded, params, pri: cavi.PriorMatrices,
+                         state: Sharded, structure: str,
+                         obs_mask) -> torch.Tensor:
+    """:func:`tame_torch.inference.cavi.compute_elbo` of a sharded state
+    (a fit's result, or inputs from
+    :func:`~tame_torch.parallel.mesh.shard_fit_inputs`): each rank's rows
+    of the residual quadratic form, traces, prior terms and entropy,
+    summed by :func:`sharded_elbo`; ``obs_mask`` the whole mask."""
+    _check(Y, state)
+    geo = Geometry(Y.mesh, Y.sizes["nodes"], Y.sizes["time"])
+    params, pri = params.to(Y.mesh.device), on_mesh(Y.mesh, pri)
+    fi = observed_inputs(Y, obs_mask, geo)
+    X, X_cov = replicated_means(state), state.local.X_cov
+    r = (X.shape[-1] - 2) // 2
+    elbo, _ = sharded_elbo(fi, geo, params, pri,
+                           (rank_quad(fi, X, geo, r, params.R_inv),), X_cov,
+                           cavi_terms(params, pri, X, X_cov, geo), structure)
+    return elbo
+
+
+def smoothed_elbo_sharded(Y: Sharded, params, pri: cavi.PriorMatrices,
+                          state: Sharded, obs_mask) -> torch.Tensor:
+    """:func:`tame_torch.inference.smoothed.smoothed_elbo` of a sharded
+    smoothed state (from :func:`~tame_torch.parallel.mesh.
+    shard_smoothed_inputs` or a sharded fit's ``field("state")``), as
+    :func:`compute_elbo_sharded` with the smoothed family's exact prior
+    terms and trajectory entropy of each rank's nodes."""
+    _check(Y, state)
+    nodes_only(Y.mesh)
+    geo = Geometry(Y.mesh, Y.sizes["nodes"], Y.sizes["time"])
+    params, pri = params.to(Y.mesh.device), on_mesh(Y.mesh, pri)
+    fi = observed_inputs(Y, obs_mask, geo)
+    X = replicated_means(state)
+    r = (X.shape[-1] - 2) // 2
+    elbo, _ = sharded_elbo(fi, geo, params, pri,
+                           (rank_quad(fi, X, geo, r, params.R_inv),),
+                           state.local.X_cov,
+                           sm.smoothed_prior_entropy(params, pri,
+                                                     state.local),
+                           "smoothed")
+    return elbo
 
 
 def seq_sweep(X: torch.Tensor, X_cov: torch.Tensor, obs: cavi.ObsConstants,
@@ -321,7 +485,7 @@ def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
     cavi.check_fit_options(update_mode, diag_mode, mask, corrected,
                            mixed_precision)
     _check(Y, init)
-    mesh, comm = Y.mesh, Y.mesh.comm
+    mesh = Y.mesh
     n, T = Y.sizes["nodes"], Y.sizes["time"]
     d = init.local.X_mean.shape[-1]
     r = (d - 2) // 2
@@ -339,7 +503,6 @@ def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
     pri = cavi.precompute_priors(params)
     prior_P = cavi._prior_precision(pri, T)[geo.ts][None]
     solver = cavi._SOLVERS[structure]
-    p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
     lr = float(learning_rate)
     X = replicated_means(init)
     X_cov = init.local.X_cov.clone()
@@ -367,20 +530,10 @@ def fit_cavi_sharded(Y: Sharded, params, init: Sharded, *, structure: str,
                 geo.gather_means(X, new, lo, hi)
         elbo = None
         if (it + 1) % elbo_every == 0 or it + 1 == max_iter:
-            own = cavi.CaviState(X[geo.rows, geo.ts], X_cov)
-            sq, cross = rank_residual_stats(fi, X, geo, r, params.R_inv,
-                                            diag_mode)
-            parts = comm.all_reduce(torch.stack([
-                sq, cross, weighted_trace(fi, X_cov),
-                *prior_partials(params, pri, X[geo.rows], X_cov,
-                                geo.ts.start),
-                cavi.gaussian_entropy(own)]), "mesh")
-            sq, cross, wtr, prior0, priort, ent = parts
-            n_dyads, wsum = likelihood_counts(fi, n, T, wtr)
-            elbo_t = cavi.elbo_from_terms(
-                p_ * sq + q_ * cross, n_dyads,
-                wsum if structure in ("full", "block") else None, prior0,
-                priort, ent, params, pri, d)
+            elbo_t, (sq, _) = sharded_elbo(
+                fi, geo, params, pri,
+                rank_residual_stats(fi, X, geo, r, params.R_inv, diag_mode),
+                X_cov, cavi_terms(params, pri, X, X_cov, geo), structure)
             elbo, mse = torch.stack([elbo_t,
                                      2.0 * sq / fi.mse_norm]).tolist()
             eh[it], mh[it] = elbo, mse
@@ -421,10 +574,8 @@ def fit_smoothed_sharded(Y: Sharded, params, init: Sharded, *,
         raise ValueError("fused=True and smoother='parallel' are mutually "
                          "exclusive solver choices")
     _check(Y, init)
-    mesh, comm = Y.mesh, Y.mesh.comm
-    if mesh.shape["time"] != 1:
-        raise ValueError("the smoothed engine shards over 'nodes' only; "
-                         "build the mesh with time=1")
+    mesh = Y.mesh
+    nodes_only(mesh)
     n, T = Y.sizes["nodes"], Y.sizes["time"]
     d = init.local.X_mean.shape[-1]
     r = (d - 2) // 2
@@ -446,7 +597,6 @@ def fit_smoothed_sharded(Y: Sharded, params, init: Sharded, *,
                  for k, (_, loc) in enumerate(shares)]
     pri = cavi.precompute_priors(params)
     solve = sm._trajectory_solver(pri, params, T, smoother == "parallel")
-    p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]
     lr = float(learning_rate)
     X = replicated_means(init)
     X_cov, X_cross = init.local.X_cov.clone(), init.local.X_cross.clone()
@@ -469,16 +619,10 @@ def fit_smoothed_sharded(Y: Sharded, params, init: Sharded, *,
                 logdets[loc] = out.logdet
             geo.gather_means(X, new, lo, hi)
         state = sm.SmoothedState(X[geo.rows], X_cov, X_cross, logdets)
-        sq, cross = rank_residual_stats(fi, X, geo, r, params.R_inv,
-                                        diag_mode)
-        parts = comm.all_reduce(torch.stack([
-            sq, cross, weighted_trace(fi, X_cov),
-            *sm.smoothed_prior_entropy(params, pri, state)]), "mesh")
-        sq, cross, wtr, prior0, priort, ent = parts
-        n_dyads, wsum = likelihood_counts(fi, n, T, wtr)
-        elbo_t = sm.smoothed_elbo_from_terms(
-            p_ * sq + q_ * cross, n_dyads, wsum, prior0, priort, ent,
-            params, pri, d)
+        elbo_t, (sq, _) = sharded_elbo(
+            fi, geo, params, pri,
+            rank_residual_stats(fi, X, geo, r, params.R_inv, diag_mode),
+            X_cov, sm.smoothed_prior_entropy(params, pri, state), "smoothed")
         elbo, mse = torch.stack([elbo_t, 2.0 * sq / fi.mse_norm]).tolist()
         eh[it], mh[it] = elbo, mse
         rule.update(elbo)

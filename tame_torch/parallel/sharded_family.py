@@ -1,9 +1,9 @@
-"""The Bernoulli (Jaakkola-Jordan) and Poisson (guarded CVI) fits sharded
-over a mesh's ``nodes`` and ``time`` ranks (the port's counterpart of GSPMD
-partitioning :func:`tame.inference.fit_cavi_bernoulli` and
-``fit_cavi_poisson``).
+"""The Bernoulli (Jaakkola-Jordan) and Poisson (guarded CVI) fits and the
+smoothed families sharded over a mesh's ranks (the port's counterpart of
+GSPMD partitioning :func:`tame.inference.fit_cavi_bernoulli`,
+``fit_cavi_poisson`` and ``fit_smoothed_family``).
 
-Both are Jacobi sweeps over time-major (T, n, n) quantities.  A rank holds
+The mean-field fits are Jacobi sweeps over time-major (T, n, n) quantities.  A rank holds
 its rows and time slice of the observations, (T_local, m, n), and every
 node's means and covariances, replicated: a row's predictor moments read
 the partner's factors.  The sender-side contractions of a row are local;
@@ -19,7 +19,14 @@ all-gathered over the mesh once per iteration.
 
 A mask gates the rank's (T_local, m, n) terms (its rows of the whole mask,
 :func:`~tame_torch.parallel.mesh.place_mask`); the observed count is
-all-reduced.  A segmented Poisson fit takes ``carry=`` from a sharded
+all-reduced.
+
+The smoothed families (:func:`fit_smoothed_family_sharded`, on a mesh over
+``nodes``) take the same terms and the same receiver-side all-reduces; in
+place of the per-(node, time) solve, one K4 launch re-solves the rank's
+trajectories, and the new means and marginal covariances are all-gathered
+(the partner moments read them) while the lag-1 cross-covariances and
+log-determinants stay with their owner.  A segmented Poisson fit takes ``carry=`` from a sharded
 result's ``resume_carry()``: the proposal's pieces are gathered into the
 replicated proposal, so the resumed fit continues the one-shot fit's bits.
 """
@@ -38,23 +45,31 @@ from tame_torch.inference.binary_cavi import (
     solve_direct,
     weighted_obs_terms,
 )
+from tame_torch.inference.family_smoothed import SmoothedFamilyResult
 from tame_torch.inference.poisson_cavi import (
     _EXP_CLIP,
     GuardRule,
     PoissonFitResult,
     _weights,
 )
+from tame_torch.inference.smoothed import (
+    SmoothedState,
+    smoothed_prior_entropy,
+)
 from tame_torch.models.likelihoods import softplus
+from tame_torch.ops.fused_smoother import fused_smoother
 from tame_torch.parallel.mesh import (
     Sharded,
     cov_sharding,
     gather,
     place_mask,
+    smoothed_spec,
     state_sharding,
 )
 from tame_torch.parallel.sharded_cavi import (
     Geometry,
     _check,
+    nodes_only,
     prior_partials,
 )
 
@@ -113,25 +128,38 @@ class _Rank:
                                 self.geo.ts.start),
                 cavi.gaussian_entropy(own))
 
+    def obs_terms(self, state, w: torch.Tensor, s: torch.Tensor):
+        """The weighted observation terms ``(P, eta)`` of this rank's rows
+        from the weights ``w`` and coefficients ``s`` of its rows: the
+        receiver sides all-reduced over the ``nodes`` ranks."""
+        X, C = state
+        g = self.geo
+        return weighted_obs_terms(
+            X[:, g.ts], self.r, w, s, cov=C[:, g.ts], rows=g.rows,
+            reduce=lambda x: self.comm.all_reduce(x, "nodes"))
+
+    def gather_factors(self, mean: torch.Tensor, cov: torch.Tensor):
+        """New replicated factors from this rank's rows' means and
+        covariances: one all-gather over the mesh."""
+        g = self.geo
+        d = mean.shape[-1]
+        both = mean.new_empty((g.n, g.T, d + d * d))
+        g.gather_means(both, torch.cat([mean, cov.flatten(-2)], -1), 0, g.n)
+        return both[..., :d], both[..., d:].unflatten(-1, (d, d))
+
     def update(self, state, w: torch.Tensor, s: torch.Tensor, lr: float):
         """One damped update of this rank's factors from the weights ``w``
         and coefficients ``s`` of its rows, gathered into new replicated
         factors."""
-        X, C = state
-        g = self.geo
-        P, eta = weighted_obs_terms(
-            X[:, g.ts], self.r, w, s, cov=C[:, g.ts], rows=g.rows,
-            reduce=lambda x: self.comm.all_reduce(x, "nodes"))
+        X = state[0]
+        P, eta = self.obs_terms(state, w, s)
         P = P + self.prior_P
-        eta = eta + cavi._prior_nat_param(self.pri, X[g.rows])[:, g.ts]
+        eta = eta + cavi._prior_nat_param(self.pri, X[self.geo.rows])[
+            :, self.geo.ts]
         mu_new, cov_new = solve_direct(P, eta)
         own = self.own(state)
-        d = X.shape[-1]
-        new = torch.cat([damped(mu_new, own.X_mean, lr),
-                         damped(cov_new, own.X_cov, lr).flatten(-2)], -1)
-        both = X.new_empty(X.shape[:2] + (d + d * d,))
-        g.gather_means(both, new, 0, g.n)
-        return both[..., :d], both[..., d:].unflatten(-1, (d, d))
+        return self.gather_factors(damped(mu_new, own.X_mean, lr),
+                                   damped(cov_new, own.X_cov, lr))
 
     def wrap(self, result, fields) -> Sharded:
         spec = {}
@@ -241,3 +269,62 @@ def fit_poisson_sharded(Y: Sharded, params, init: Sharded, *,
         prop_mean=prop.X_mean.clone(), prop_cov=prop.X_cov.clone(),
         last_elbo=float(rule.e_base), step_scale=float(rule.scale),
         pat_count=rule.pat), ("X_mean", "X_cov", "prop_mean", "prop_cov"))
+
+
+def fit_smoothed_family_sharded(Y: Sharded, params, init: Sharded, *,
+                                family, max_iter: int, learning_rate,
+                                tolerance, patience: int, mask) -> Sharded:
+    """:func:`tame_torch.inference.family_smoothed.fit_smoothed_family` on
+    inputs from :func:`~tame_torch.parallel.mesh.shard_smoothed_inputs`
+    (a mesh over ``nodes``): the family's terms on the rank's (T, m, n)
+    gate against the replicated means and marginal covariances (the
+    partner moments read them); one
+    :func:`~tame_torch.ops.fused_smoother.fused_smoother` call (K4 on the
+    card) per iteration re-solves the rank's trajectories; the new means
+    and covariances are all-gathered, the cross-covariances and
+    log-determinants stay with their owner.  The guard judges the
+    all-reduced objective, so every rank accepts or rejects together."""
+    nodes_only(Y.mesh)
+    rk = _Rank(Y, params, init, mask)
+    y0, offd = rk.y0, rk.offd
+    off_prior = -rk.pri.Qinv_Phi.T
+
+    def evaluate(state):
+        factors, cross, logdets = state
+        m, var = rk.moments(factors)
+        loglik, w, s = family.vi_surrogate(y0, offd, m, var)
+        own = rk.own(factors)
+        loglik, prior0, priort, ent = rk.comm.all_reduce(torch.stack([
+            loglik, *smoothed_prior_entropy(rk.params, rk.pri, SmoothedState(
+                own.X_mean, own.X_cov, cross, logdets))]), "mesh")
+        return loglik + prior0 + priort + ent, w, s
+
+    def update(base, w, s, lr):
+        factors = base[0]
+        P, eta = rk.obs_terms(factors, w, s)
+        out = fused_smoother(P + rk.prior_P, off_prior, eta)
+        return (rk.gather_factors(
+            damped(out.mean, rk.own(factors).X_mean, lr), out.cov),
+            out.cross_cov, out.logdet)
+
+    rule = GuardRule(-np.inf, 1.0, 0, tolerance, patience)
+    eh = np.full(cavi.history_buffer(max_iter), np.nan, np.float32)
+    state = base = (rk.state, init.local.X_cross, init.local.logdets)
+    it = 0
+    while it < max_iter and rule.running:
+        elbo, w, s = evaluate(state)
+        if rule.judge(elbo.item()):
+            # rejected: the pseudo-likelihood terms are the base's
+            state = base
+            _, w, s = evaluate(state)
+        eh[it] = rule.e_base
+        base = state
+        state = update(base, w, s, rule.step_lr(learning_rate))
+        it += 1
+    own = rk.own(base[0])
+    result = SmoothedFamilyResult(
+        state=SmoothedState(own.X_mean.clone(), own.X_cov.clone(), *base[1:]),
+        elbo_history=torch.from_numpy(eh), n_iter=it,
+        converged=rule.converged, diverged=rule.diverged)
+    return Sharded(result, rk.mesh, rk.sizes,
+                   {"state": smoothed_spec(result.state)})

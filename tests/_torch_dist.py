@@ -1,5 +1,6 @@
-"""Rank-side cases of ``tests/test_torch_parallel.py`` and
-``tests/test_torch_parallel_masked.py``: one spawned gloo world on the CPU
+"""Rank-side cases of ``tests/test_torch_parallel.py``,
+``tests/test_torch_parallel_masked.py`` and
+``tests/test_torch_parallel_em.py``: one spawned gloo world on the CPU
 per file runs them all, each rank calling every case in order (a mesh is
 made by every rank of the world; its members run the fit).
 
@@ -14,16 +15,21 @@ import contextlib
 import os
 
 import numpy as np
+import torch
 
 from tame_torch.inference import (
     TemporalAMEHMC,
     TemporalAMENUTS,
     TemporalAMESMC,
     cavi,
+    exact_elbo,
     fit_cavi_bernoulli,
     fit_cavi_poisson,
+    fit_em,
+    fit_smoothed_family,
+    warm_init_smoothed_family,
 )
-from tame_torch.inference import smoothed
+from tame_torch.inference import em, smoothed
 from tame_torch.models import TemporalAMEModel, params_from_numpy
 from tame_torch.parallel import (
     auto_mesh,
@@ -34,7 +40,10 @@ from tame_torch.parallel import (
     shard_fit_inputs,
     shard_smoothed_inputs,
 )
-from tame_torch.parallel.comm_analysis import count_iteration
+from tame_torch.parallel.comm_analysis import (
+    count_em_iteration,
+    count_iteration,
+)
 from tame_torch.parallel.distributed import spawn_world
 
 
@@ -197,6 +206,135 @@ def iteration_bytes(nodes, time, n, T, r, num_blocks, **options):
     return count_iteration(mesh, n, T, r, num_blocks=num_blocks, **options)
 
 
+# -- the warm inits, the ELBOs, EM and the smoothed families ----------------
+
+PHI_STRUCTURES = ("scalar", "blocks", "diag")
+R_STRUCTURES = ("exchangeable", "diag")
+
+
+def _torch(x):
+    return None if x is None else torch.as_tensor(x)
+
+
+def _fields(tree) -> dict:
+    return {f: getattr(tree, f).cpu().numpy() for f in tree._fields}
+
+
+def warm(nodes, time, Y, params, probe, mask=None, smoothed_state=False):
+    """``warm_init_state`` (or ``warm_init_smoothed_state``) on a sharded
+    ``Y``, gathered; the state's local rows."""
+    mesh = _mesh(nodes, time)
+    if not mesh.member:
+        return None
+    p, Y, m = params_from_numpy(params), torch.as_tensor(Y), _torch(mask)
+    if smoothed_state:
+        Y_s, _ = shard_smoothed_inputs(mesh, Y)
+        out = smoothed.warm_init_smoothed_state(Y_s, p, obs_mask=m,
+                                                probe=_torch(probe))
+    else:
+        Y_s, _ = shard_fit_inputs(mesh, Y)
+        out = cavi.warm_init_state(Y_s, p, obs_mask=m, probe=_torch(probe))
+    return dict(_fields(out.full()), local_rows=out.X_mean.shape[0])
+
+
+def elbos(nodes, time, Y, params, state, mask=None):
+    """``compute_elbo`` of a sharded CAVI state for every structure."""
+    mesh = _mesh(nodes, time)
+    if not mesh.member:
+        return None
+    p = params_from_numpy(params)
+    Y_s, st = shard_fit_inputs(mesh, Y, cavi.state_from_numpy(state))
+    pri = cavi.precompute_priors(p)
+    return {s: float(cavi.compute_elbo(Y_s, p, pri, st, s,
+                                       obs_mask=_torch(mask)))
+            for s in ("diag", "full", "block")}
+
+
+def em_parts(nodes, Y, params, state, mask=None):
+    """One M-step for every phi and R structure, the exact ELBO and the
+    smoothed ELBO of a sharded smoothed state."""
+    mesh = _mesh(nodes)
+    if not mesh.member:
+        return None
+    p, m = params_from_numpy(params), _torch(mask)
+    Y_s, st = shard_smoothed_inputs(mesh, Y,
+                                    smoothed.smoothed_state_from_numpy(state))
+    out = {f"{ps}-{rs}": _fields(em.em_update_params(
+        p, Y_s, st, mask=m, phi_structure=ps, r_structure=rs))
+        for ps in PHI_STRUCTURES for rs in R_STRUCTURES}
+    out["exact_elbo"] = float(exact_elbo(Y_s, p, st, mask=m))
+    out["smoothed_elbo"] = float(smoothed.smoothed_elbo(
+        Y_s, p, cavi.precompute_priors(p), st, obs_mask=m))
+    return out
+
+
+@contextlib.contextmanager
+def counting_e_steps(tally: list):
+    """Record the iterations of every E-step ``fit_em`` runs."""
+    names = ("fit_cavi_smoothed", "fit_smoothed_family")
+    inner = {name: getattr(em, name) for name in names}
+
+    def counted(fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            tally.append(out.n_iter)
+            return out
+        return run
+
+    for name in names:
+        setattr(em, name, counted(inner[name]))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(em, name, inner[name])
+
+
+def em_fit(nodes, Y, params, kw, init=None, mask=None):
+    """``fit_em`` on a sharded network: its history, learned parameters,
+    E-step stops and gathered means."""
+    mesh = _mesh(nodes)
+    if not mesh.member:
+        return None
+    Y_s, init_s = shard_smoothed_inputs(
+        mesh, Y, None if init is None
+        else smoothed.smoothed_state_from_numpy(init))
+    tally = []
+    mesh.comm.reset()
+    with counting_e_steps(tally):
+        res = fit_em(Y_s, params_from_numpy(params), init=init_s,
+                     mask=_torch(mask), **kw)
+    out = {"collectives": mesh.comm.stats(), "history": res.history,
+           "params": _fields(res.params), "e_steps": tally,
+           "X_mean": res.state.full().X_mean.numpy()}
+    if kw.get("family", "gaussian") == "gaussian":
+        n, _, T, _ = np.shape(Y)
+        r = (res.params.Phi.shape[0] - 2) // 2
+        out["counted"] = [count_em_iteration(
+            mesh, n, T, r, k, masked=mask is not None)["em_iteration"]
+            for k in tally]
+    return out
+
+
+def family_fit(nodes, Y, params, init, family, kw, mask=None):
+    """``fit_smoothed_family`` on a sharded network from a whole init (or
+    from ``warm_init_smoothed_family`` on the sharded ``Y`` when ``init``
+    is None), gathered."""
+    mesh = _mesh(nodes)
+    if not mesh.member:
+        return None
+    p, m = params_from_numpy(params), _torch(mask)
+    Y_s, init_s = shard_smoothed_inputs(
+        mesh, Y, None if init is None
+        else smoothed.smoothed_state_from_numpy(init))
+    if init_s is None:
+        init_s = warm_init_smoothed_family(Y_s, p, family, obs_mask=m)
+    out = fit_smoothed_family(Y_s, p, init_s, family=family, mask=m, **kw)
+    return dict(_fields(out.field("state").full()), elbo=_history(out),
+                n_iter=out.n_iter, converged=out.converged)
+
+
 CASES = {"fit": fit, "smoothed": smoothed_fit, "samplers": samplers,
          "meshes": meshes, "scaling": scaling, "bytes": iteration_bytes,
-         "resume": poisson_resume}
+         "resume": poisson_resume, "warm": warm, "elbos": elbos,
+         "em_parts": em_parts, "em_fit": em_fit, "family_fit": family_fit}

@@ -42,6 +42,7 @@ from tame_torch.parallel import (
     obs_sharding,
     replicated,
     shard_fit_inputs,
+    shard_smoothed_inputs,
     state_sharding,
 )
 from tame_torch.parallel import comm
@@ -366,40 +367,57 @@ def test_one_rank_mesh_is_the_plain_fit(one_rank, problems):
         tcavi.fit_cavi(torch.as_tensor(Y), params_from_numpy(p), init_s)
 
 
-@pytest.mark.parametrize("what", ["fused", "fit_em", "warm_init_state",
-                                  "warm_init_smoothed_state",
-                                  "fit_smoothed_family",
-                                  "warm_init_smoothed_family",
-                                  "exact_elbo"])
+@pytest.mark.parametrize("what", ["fused", "family_inputs"])
 def test_out_of_scope_raises(one_rank, problems, what):
-    """K3 never runs under a mesh; the entry points with no sharded engine
-    refuse a sharded ``Y`` by name before they read it."""
-    from tame_torch.inference import (
-        exact_elbo,
-        fit_em,
-        fit_smoothed_family,
-        warm_init_smoothed_family,
-    )
+    """K3 never runs under a mesh; the internal ``family_inputs`` takes the
+    whole network and names the sharded engines for a sharded ``Y``."""
+    from tame_torch.inference.binary_cavi import family_inputs
 
     Y, init, p = problems["base"]
     Y_s, init_s = shard_fit_inputs(one_rank, Y, tcavi.state_from_numpy(init))
-    params = params_from_numpy(p)
     if what == "fused":
         with pytest.raises(ValueError, match="K3"):
-            tcavi.fit_cavi(Y_s, params, init_s, fused=True)
+            tcavi.fit_cavi(Y_s, params_from_numpy(p), init_s, fused=True)
         return
-    state = tsm.init_smoothed_state(torch.Generator(), 16, 8, 6)
-    call = {"fit_em": lambda: fit_em(Y_s, params, n_em=1),
-            "warm_init_state": lambda: tcavi.warm_init_state(Y_s, params),
-            "warm_init_smoothed_state":
-                lambda: tsm.warm_init_smoothed_state(Y_s, params),
-            "fit_smoothed_family": lambda: fit_smoothed_family(
-                Y_s, params, state, family="bernoulli"),
-            "warm_init_smoothed_family": lambda: warm_init_smoothed_family(
-                Y_s, params, "poisson"),
-            "exact_elbo": lambda: exact_elbo(Y_s, params, state)}[what]
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A.9"):
-        call()
+    with pytest.raises(TypeError, match="family_inputs.*sharded_family"):
+        family_inputs(Y_s)
+
+
+@pytest.mark.parametrize("what", ["compute_elbo", "smoothed_elbo",
+                                  "em_update_params", "exact_elbo"])
+def test_public_function_takes_a_sharded_y(one_rank, problems, what):
+    """The public functions that read a whole ``Y`` take a sharded one in
+    its sharded form (no opaque failure): on one rank, the plain
+    function's bits; a sharded ``Y`` with a whole state raises
+    ``TypeError``."""
+    from tame_torch.inference import em_update_params, exact_elbo
+
+    Y, init, p = problems["base"]
+    Yt, params = torch.as_tensor(Y), params_from_numpy(p)
+    pri = tcavi.precompute_priors(params)
+    if what == "compute_elbo":
+        state = tcavi.state_from_numpy(init)
+        Y_s, state_s = shard_fit_inputs(one_rank, Yt, state)
+
+        def call(y, s):
+            return tcavi.compute_elbo(y, params, pri, s, "full")
+    else:
+        state = tsm.fit_cavi_smoothed(
+            Yt, params, tsm.warm_init_smoothed_state(Yt, params),
+            max_iter=3).state
+        Y_s, state_s = shard_smoothed_inputs(one_rank, Yt, state)
+        call = {"smoothed_elbo": lambda y, s: tsm.smoothed_elbo(
+                    y, params, pri, s),
+                "em_update_params": lambda y, s: em_update_params(
+                    params, y, s),
+                "exact_elbo": lambda y, s: exact_elbo(y, params, s)}[what]
+    got, want = call(Y_s, state_s), call(Yt, state)
+    if isinstance(want, torch.Tensor):
+        assert torch.equal(got, want)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(TypeError, match="both"):
+        call(Y_s, state)
 
 
 def test_no_jax_in_the_worker_module():
