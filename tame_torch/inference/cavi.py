@@ -50,6 +50,7 @@ from tame_torch.ops.cholesky import (
     batched_spd_solve,
     batched_spd_solve_inv,
 )
+from tame_torch.utils import profiling
 
 _LOG2PI = 1.8378770664093453  # log(2 * pi)
 
@@ -134,6 +135,8 @@ def _eta_contract(W: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
 
 
 def precompute_priors(params: AMEParams) -> PriorMatrices:
+    # each linalg.inv checks its result on the host
+    profiling.count_syncs(params.Q, 2)
     Q_inv = torch.linalg.inv(params.Q)
     return PriorMatrices(
         Sigma0_inv=torch.linalg.inv(params.Sigma0),
@@ -861,6 +864,7 @@ def init_state(generator: torch.Generator, n: int, T: int, d: int,
             cross[2:, :2] = True
             X_cov = ((eye * cov_init_scale + noise).masked_fill(cross, 0.0)
                      + eye * 0.05)
+    profiling.count_copies((X_mean, X_cov), device or gdev)
     return CaviState(X_mean=X_mean.to(device or gdev),
                      X_cov=X_cov.to(device or gdev))
 
@@ -924,9 +928,13 @@ def warm_init_state(Y: torch.Tensor, params: AMEParams, *,
         gen = (generator if generator is not None
                else torch.Generator().manual_seed(0))
         probe = torch.randn(n, r, generator=gen, device=gen.device)
+    profiling.count_copies((probe,), M.device)
     Z = resid @ probe.to(M)
     for _ in range(n_power_iters):
         Z, _ = torch.linalg.qr(resid @ (resid.T @ Z))
+    # linalg.svd checks its result on the host (two syncs, CUDA's sync debug
+    # mode reports); linalg.qr does not wait
+    profiling.count_syncs(M, 2)
     u_s, sing, vt = torch.linalg.svd(Z.T @ resid, full_matrices=False)
     scale = torch.sqrt(torch.clamp(sing, min=1e-12))
     U = (Z @ u_s) * scale[None, :]
@@ -1073,15 +1081,18 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     state = init
     it = 0
     while it < max_iter and rule.running:
-        if update_mode == "jacobi":
-            state = cavi_step_jacobi(state, fi.obs, pri, params, structure,
-                                     lr, corrected, mask=fi.mask_c)
-        elif update_mode == "seq":
-            state = cavi_step_seq(state, fi.obs, pri, params, structure, lr)
-        else:
-            state = cavi_step_block(state, fi.obs, pri, params, structure,
-                                    lr, num_blocks, corrected,
-                                    mask=fi.mask_c)
+        with profiling.span("loop.step"):
+            if update_mode == "jacobi":
+                state = cavi_step_jacobi(state, fi.obs, pri, params,
+                                         structure, lr, corrected,
+                                         mask=fi.mask_c)
+            elif update_mode == "seq":
+                state = cavi_step_seq(state, fi.obs, pri, params, structure,
+                                      lr)
+            else:
+                state = cavi_step_block(state, fi.obs, pri, params,
+                                        structure, lr, num_blocks, corrected,
+                                        mask=fi.mask_c)
         elbo = None
         if (it + 1) % elbo_every == 0 or it + 1 == max_iter:
             sq, cross = residual_stats(fi, state.X_mean, params.R_inv,
@@ -1089,8 +1100,10 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
             elbo_t = _elbo_from_quad(p_ * sq + q_ * cross, params, pri,
                                      state, structure,
                                      mask_stats=fi.mask_stats)
-            elbo, mse = torch.stack([elbo_t,
-                                     2.0 * sq / fi.mse_norm]).tolist()
+            with profiling.span("loop.readback"):
+                elbo, mse = torch.stack([elbo_t,
+                                         2.0 * sq / fi.mse_norm]).tolist()
+                profiling.count(profiling.SYNCS)
             eh[it], mh[it] = elbo, mse
         rule.update(elbo)
         it += 1
@@ -1146,6 +1159,7 @@ def _sharded(Y, init) -> bool:
     return sharded[0]
 
 
+@profiling.spanned("fit.run")
 def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
              structure: str = "full", update_mode: str = "jacobi",
              max_iter: int = 100, learning_rate=1.0, tolerance=1e-4,

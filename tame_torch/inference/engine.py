@@ -21,6 +21,7 @@ from tame_torch.config import STRUCTURE_TO_FACTORIZATION, InferenceConfig
 from tame_torch.inference import cavi
 from tame_torch.models.params import AMEParams
 from tame_torch.ops import dyad as dyad_ops
+from tame_torch.utils import profiling
 
 
 def forecast_means(mu: torch.Tensor, Phi: torch.Tensor,
@@ -105,6 +106,7 @@ class TemporalAMECaviVI(torch.nn.Module):
 
     structure = "full"
 
+    @profiling.spanned("engine.build")
     def __init__(self, model, structure: Optional[str] = None,
                  learning_rate: float = 1.0, init_scale: float = 0.1,
                  cov_init_scale: float = 0.5, seed: int = 42,
@@ -131,6 +133,7 @@ class TemporalAMECaviVI(torch.nn.Module):
         self.mixed_precision = mixed_precision
         self.diag_mode = diag_mode
         self.elbo_every = elbo_every
+        profiling.count_copies((*model.params, mask), self.Y.device)
         self.mask = (None if mask is None else torch.as_tensor(
             mask, dtype=self.Y.dtype, device=self.Y.device))
         self.params = model.params.to(self.Y.device, self.Y.dtype)
@@ -142,19 +145,20 @@ class TemporalAMECaviVI(torch.nn.Module):
         self._carry_elbo: Optional[float] = None
         self._carry_pat = 0
 
-        if init_mode == "warm":
-            state = cavi.warm_init_state(
-                self.Y, self.params, structure=self.structure,
-                cov_init_scale=cov_init_scale,
-                generator=torch.Generator().manual_seed(seed),
-                obs_mask=self.mask)
-        elif init_mode == "random":
-            state = cavi.init_state(
-                torch.Generator().manual_seed(seed), self.n, self.T, self.d,
-                self.structure, init_scale, cov_init_scale,
-                device=self.Y.device)
-        else:
-            raise ValueError(f"unknown init_mode '{init_mode}'")
+        with profiling.span("engine.start"):
+            if init_mode == "warm":
+                state = cavi.warm_init_state(
+                    self.Y, self.params, structure=self.structure,
+                    cov_init_scale=cov_init_scale,
+                    generator=torch.Generator().manual_seed(seed),
+                    obs_mask=self.mask)
+            elif init_mode == "random":
+                state = cavi.init_state(
+                    torch.Generator().manual_seed(seed), self.n, self.T,
+                    self.d, self.structure, init_scale, cov_init_scale,
+                    device=self.Y.device)
+            else:
+                raise ValueError(f"unknown init_mode '{init_mode}'")
         self.register_buffer("X_mean", state.X_mean)
         self.register_buffer("X_cov", state.X_cov)
 
@@ -178,6 +182,7 @@ class TemporalAMECaviVI(torch.nn.Module):
             kwargs["cov_init_scale"] = config.cov_init_scale
         return cls(model, **kwargs)
 
+    @profiling.spanned("engine.fit")
     def fit(self, max_iter: int = 100, tolerance: float = 1e-4,
             verbose: bool = True, check_every: int = 10,
             checkpoint_every: Optional[int] = None, ckpt_dir=None,

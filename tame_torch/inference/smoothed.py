@@ -46,6 +46,7 @@ from tame_torch.ops.fused_smoother import (
     fused_smoother_supported,
 )
 from tame_torch.ops.ptridiag import parallel_block_tridiag_smoother
+from tame_torch.utils import profiling
 
 _LOG2PI = 1.8378770664093453
 
@@ -93,6 +94,7 @@ def init_smoothed_state(generator: torch.Generator, n: int, T: int, d: int,
     on its device, then moved to ``device``."""
     X_mean = torch.randn(n, T, d, generator=generator,
                          device=generator.device) * init_scale
+    profiling.count_copies((X_mean,), device or generator.device)
     X_mean = X_mean.to(device or generator.device)
     return SmoothedState(X_mean, *_fresh_covariances(
         n, T, d, X_mean.dtype, X_mean.device))
@@ -311,6 +313,7 @@ def smoothed_prior_entropy(params: AMEParams, pri: cavi.PriorMatrices,
 # Full fit
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("fit.run")
 def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
                       init: SmoothedState, *, max_iter: int = 100,
                       learning_rate=0.8, tolerance=1e-4, patience: int = 3,
@@ -407,18 +410,22 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     state = init
     it = 0
     while it < max_iter and rule.running:
-        if update_mode == "block":
-            state = smoothed_step_block(state, fi.obs, pri, params, lr,
-                                        num_blocks, corrected, parallel,
-                                        mask=fi.mask_c)
-        else:
-            state = smoothed_step(state, fi.obs, pri, params, lr, corrected,
-                                  parallel, mask=fi.mask_c)
+        with profiling.span("loop.step"):
+            if update_mode == "block":
+                state = smoothed_step_block(state, fi.obs, pri, params, lr,
+                                            num_blocks, corrected, parallel,
+                                            mask=fi.mask_c)
+            else:
+                state = smoothed_step(state, fi.obs, pri, params, lr,
+                                      corrected, parallel, mask=fi.mask_c)
         sq, cross = cavi.residual_stats(fi, state.X_mean, params.R_inv,
                                         diag_mode)
         elbo_t = smoothed_elbo_from_quad(p_ * sq + q_ * cross, params, pri,
                                          state, mask_stats=fi.mask_stats)
-        elbo, mse = torch.stack([elbo_t, 2.0 * sq / fi.mse_norm]).tolist()
+        with profiling.span("loop.readback"):
+            elbo, mse = torch.stack([elbo_t,
+                                     2.0 * sq / fi.mse_norm]).tolist()
+            profiling.count(profiling.SYNCS)
         eh[it], mh[it] = elbo, mse
         rule.update(elbo)
         it += 1
@@ -451,6 +458,7 @@ class TemporalAMESmoothedVI(torch.nn.Module):
 
     structure = "smoothed"
 
+    @profiling.spanned("engine.build")
     def __init__(self, model, learning_rate: float = 0.8,
                  init_scale: float = 0.1, seed: int = 42,
                  corrected: bool = True, init_mode: str = "random",
@@ -471,6 +479,7 @@ class TemporalAMESmoothedVI(torch.nn.Module):
         self.num_blocks = num_blocks
         self.mixed_precision = mixed_precision
         self.diag_mode = diag_mode
+        profiling.count_copies((*model.params, mask), self.Y.device)
         self.mask = (None if mask is None else torch.as_tensor(
             mask, dtype=self.Y.dtype, device=self.Y.device))
         self.params = model.params.to(self.Y.device, self.Y.dtype)
@@ -478,15 +487,16 @@ class TemporalAMESmoothedVI(torch.nn.Module):
         self._converged = self._diverged = False
         self._carry_elbo: Optional[float] = None
         self._carry_pat = 0
-        if init_mode == "warm":
-            st = warm_init_smoothed_state(self.Y, self.params,
-                                          obs_mask=self.mask)
-        elif init_mode == "random":
-            st = init_smoothed_state(torch.Generator().manual_seed(seed),
-                                     self.n, self.T, self.d, init_scale,
-                                     device=self.Y.device)
-        else:
-            raise ValueError(f"unknown init_mode '{init_mode}'")
+        with profiling.span("engine.start"):
+            if init_mode == "warm":
+                st = warm_init_smoothed_state(self.Y, self.params,
+                                              obs_mask=self.mask)
+            elif init_mode == "random":
+                st = init_smoothed_state(
+                    torch.Generator().manual_seed(seed), self.n, self.T,
+                    self.d, init_scale, device=self.Y.device)
+            else:
+                raise ValueError(f"unknown init_mode '{init_mode}'")
         for name, value in st._asdict().items():
             self.register_buffer(name, value)
 
@@ -494,6 +504,7 @@ class TemporalAMESmoothedVI(torch.nn.Module):
         return SmoothedState(self.X_mean, self.X_cov, self.X_cross,
                              self.logdets)
 
+    @profiling.spanned("engine.fit")
     def fit(self, max_iter: int = 100, tolerance: float = 1e-4,
             verbose: bool = True, check_every: int = 10,
             checkpoint_every=None, ckpt_dir=None, resume: bool = False):

@@ -50,6 +50,7 @@ import torch
 
 from tame_torch.ops import _ext
 from tame_torch.ops.cholesky import _on_card
+from tame_torch.utils import profiling
 
 SMEM_LIMIT_BYTES = 232448  # 227 KB: the most one block may use on sm_90
 # d = 2 + 2r for r = 1..5: the sizes K3 is instantiated for, as the JAX
@@ -208,7 +209,9 @@ def fused_fit_kernel(Y, R_inv, Sigma0, Q, Phi, X_mean0, X_cov0, max_iter,
                                     X_cov0, max_iter, learning_rate,
                                     tolerance, carry_elbo, carry_pat, **kw)
     buf = kw["buf_size"]
-    h = hist.cpu()
+    with profiling.span("loop.readback"):
+        h = hist.cpu()
+        profiling.count(profiling.SYNCS)
     n_iter, conv, div, pat, last = h[2 * buf:].tolist()
     return FusedFitOut(X_mean=Xm, X_cov=Xc, elbo_history=h[:buf],
                        mse_history=h[buf:2 * buf], n_iter=int(n_iter),

@@ -318,15 +318,6 @@ class TestProfiling:
         assert len(calls) == 5 and t["repeats"] == 3
         assert t["clock"] == "host" and t["best_s"] <= t["median_s"]
 
-    def test_metrics_logger_round_trip(self, tmp_path):
-        path = tmp_path / "m" / "log.jsonl"
-        with profiling.MetricsLogger(path) as log:
-            profiling.log_fit_history(log, {"elbo": [1.0, 2.0],
-                                            "mse": [torch.tensor(0.5)]})
-        rows = profiling.MetricsLogger.read(path)
-        assert [r["step"] for r in rows] == [0, 1]
-        assert rows[0]["mse"] == 0.5 and "mse" not in rows[1]
-
     def test_trace_writes_a_chrome_trace(self, tmp_path):
         with profiling.trace(tmp_path / "tr") as prof:
             torch.ones(8).sum()
