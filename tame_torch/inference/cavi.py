@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tame_torch.inference import graphed
 from tame_torch.models.params import AMEParams, _fields_as_tensors
 from tame_torch.ops import dyad as dyad_ops
 from tame_torch.ops import fused_fit
@@ -1067,8 +1068,10 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
              mixed_precision: bool = False, diag_mode: str = "exact",
              mask=None, packed_mask: bool = False) -> FitResult:
     """The unfused fit: one step, one diagnostics pass and one host check
-    of the stopping rule per iteration.  ``mask`` must already have a zero
-    diagonal (:func:`fit_cavi`)."""
+    of the stopping rule per iteration; on the card the steps and
+    diagnostics after the first are CUDA graph replays
+    (:mod:`tame_torch.inference.graphed`).  ``mask`` must already have a
+    zero diagonal (:func:`fit_cavi`)."""
     fi = fit_inputs(Y, params.R_inv, mask, mixed_precision=mixed_precision,
                     diag_mode=diag_mode, packed_mask=packed_mask,
                     num_blocks=num_blocks if update_mode == "block" else 1)
@@ -1078,35 +1081,40 @@ def fit_loop(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     eh = np.full(buf_size, np.nan, np.float32)
     mh = np.full(buf_size, np.nan, np.float32)
     rule = _StopRule(carry_elbo, carry_patience, tolerance, patience)
-    state = init
+
+    # the step functions are looked up by name at each call (a wrapper set
+    # on the module from outside sees every eager call and the capture)
+    def step(state):
+        if update_mode == "jacobi":
+            return cavi_step_jacobi(state, fi.obs, pri, params, structure,
+                                    lr, corrected, mask=fi.mask_c)
+        if update_mode == "seq":
+            return cavi_step_seq(state, fi.obs, pri, params, structure, lr)
+        return cavi_step_block(state, fi.obs, pri, params, structure, lr,
+                               num_blocks, corrected, mask=fi.mask_c)
+
+    def diagnostics(state):
+        sq, cross = residual_stats(fi, state.X_mean, params.R_inv, diag_mode)
+        elbo_t = _elbo_from_quad(p_ * sq + q_ * cross, params, pri, state,
+                                 structure, mask_stats=fi.mask_stats)
+        return torch.stack([elbo_t, 2.0 * sq / fi.mse_norm])
+
     it = 0
-    while it < max_iter and rule.running:
-        with profiling.span("loop.step"):
-            if update_mode == "jacobi":
-                state = cavi_step_jacobi(state, fi.obs, pri, params,
-                                         structure, lr, corrected,
-                                         mask=fi.mask_c)
-            elif update_mode == "seq":
-                state = cavi_step_seq(state, fi.obs, pri, params, structure,
-                                      lr)
-            else:
-                state = cavi_step_block(state, fi.obs, pri, params,
-                                        structure, lr, num_blocks, corrected,
-                                        mask=fi.mask_c)
-        elbo = None
-        if (it + 1) % elbo_every == 0 or it + 1 == max_iter:
-            sq, cross = residual_stats(fi, state.X_mean, params.R_inv,
-                                       diag_mode)
-            elbo_t = _elbo_from_quad(p_ * sq + q_ * cross, params, pri,
-                                     state, structure,
-                                     mask_stats=fi.mask_stats)
-            with profiling.span("loop.readback"):
-                elbo, mse = torch.stack([elbo_t,
-                                         2.0 * sq / fi.mse_norm]).tolist()
-                profiling.count(profiling.SYNCS)
-            eh[it], mh[it] = elbo, mse
-        rule.update(elbo)
-        it += 1
+    with graphed.LoopRunner(step, diagnostics, init,
+                            graphed.engages(Y.device, max_iter)) as loop:
+        while it < max_iter and rule.running:
+            with profiling.span("loop.step"):
+                loop.step()
+            elbo = None
+            if (it + 1) % elbo_every == 0 or it + 1 == max_iter:
+                out = loop.diagnostics()
+                with profiling.span("loop.readback"):
+                    elbo, mse = out.tolist()
+                    profiling.count(profiling.SYNCS)
+                eh[it], mh[it] = elbo, mse
+            rule.update(elbo)
+            it += 1
+    state = loop.state
     return FitResult(X_mean=state.X_mean, X_cov=state.X_cov,
                      elbo_history=torch.from_numpy(eh),
                      mse_history=torch.from_numpy(mh), n_iter=it,

@@ -24,9 +24,12 @@ cross-covariances and the entropy the trajectory log-determinants.
 Damping applies to the means only; covariances come fresh from each solve.
 
 :func:`fit_cavi_smoothed` is a Python loop with one host read of the ELBO
-per iteration and the JAX loop's stopping rule (``cavi._StopRule``).  Masks,
-bf16 weights and stats diagnostics share the CAVI engine's inputs and
-diagnostics (``cavi.fit_inputs``, ``cavi.residual_stats``).
+per iteration and the JAX loop's stopping rule (``cavi._StopRule``); on
+the card its iterations after the first are CUDA graph replays
+(:mod:`tame_torch.inference.graphed`; not with the associative-scan
+smoother).  Masks, bf16 weights and stats
+diagnostics share the CAVI engine's inputs and diagnostics
+(``cavi.fit_inputs``, ``cavi.residual_stats``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tame_torch.inference import cavi
+from tame_torch.inference import cavi, graphed
 from tame_torch.models.params import AMEParams, _fields_as_tensors
 from tame_torch.ops import dyad as dyad_ops
 from tame_torch.ops.fused_smoother import (
@@ -407,29 +410,39 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     eh = np.full(buf, np.nan, np.float32)
     mh = np.full(buf, np.nan, np.float32)
     rule = cavi._StopRule(carry_elbo, carry_patience, tolerance, patience)
-    state = init
-    it = 0
-    while it < max_iter and rule.running:
-        with profiling.span("loop.step"):
-            if update_mode == "block":
-                state = smoothed_step_block(state, fi.obs, pri, params, lr,
-                                            num_blocks, corrected, parallel,
-                                            mask=fi.mask_c)
-            else:
-                state = smoothed_step(state, fi.obs, pri, params, lr,
-                                      corrected, parallel, mask=fi.mask_c)
+
+    # the step functions are looked up by name at each call, as in
+    # cavi.fit_loop
+    def step(state):
+        if update_mode == "block":
+            return smoothed_step_block(state, fi.obs, pri, params, lr,
+                                       num_blocks, corrected, parallel,
+                                       mask=fi.mask_c)
+        return smoothed_step(state, fi.obs, pri, params, lr, corrected,
+                             parallel, mask=fi.mask_c)
+
+    def diagnostics(state):
         sq, cross = cavi.residual_stats(fi, state.X_mean, params.R_inv,
                                         diag_mode)
         elbo_t = smoothed_elbo_from_quad(p_ * sq + q_ * cross, params, pri,
                                          state, mask_stats=fi.mask_stats)
-        with profiling.span("loop.readback"):
-            elbo, mse = torch.stack([elbo_t,
-                                     2.0 * sq / fi.mse_norm]).tolist()
-            profiling.count(profiling.SYNCS)
-        eh[it], mh[it] = elbo, mse
-        rule.update(elbo)
-        it += 1
-    return SmoothedFitResult(state=state, elbo_history=torch.from_numpy(eh),
+        return torch.stack([elbo_t, 2.0 * sq / fi.mse_norm])
+
+    it = 0
+    graphs = graphed.engages(Y.device, max_iter, capturable=not parallel)
+    with graphed.LoopRunner(step, diagnostics, init, graphs) as loop:
+        while it < max_iter and rule.running:
+            with profiling.span("loop.step"):
+                loop.step()
+            out = loop.diagnostics()
+            with profiling.span("loop.readback"):
+                elbo, mse = out.tolist()
+                profiling.count(profiling.SYNCS)
+            eh[it], mh[it] = elbo, mse
+            rule.update(elbo)
+            it += 1
+    return SmoothedFitResult(state=loop.state,
+                             elbo_history=torch.from_numpy(eh),
                              mse_history=torch.from_numpy(mh), n_iter=it,
                              converged=rule.converged,
                              diverged=rule.diverged,

@@ -6,8 +6,9 @@
   profiler's clock and outside its event list; :func:`spans` reads them,
   :func:`clear_spans` empties the buffer;
 * :func:`count` — integer counters, always on (``syncs``: the host's
-  syncs with the card); :func:`counters` reads them beside the kernels'
-  launch counts;
+  syncs with the card; ``graphed_iters``: fit-loop iterations replayed
+  as CUDA graphs, :mod:`tame_torch.inference.graphed`); :func:`counters`
+  reads them beside the kernels' launch counts;
 * :func:`trace` — a ``torch.profiler`` trace of the enclosed block (CPU
   and, with a card, CUDA activity), written as a Chrome trace with the
   program's spans in it;
@@ -43,6 +44,7 @@ import torch
 
 SPAN_LIMIT = 1 << 18   # records the buffer holds; later ones are dropped
 SYNCS = "syncs"
+GRAPHED_ITERS = "graphed_iters"
 # The kernels' launch counters (``<function>.launches``), by module.
 KERNELS = (("cholesky", "spd_solve_inv_kernel"),
            ("cholesky", "logdet_spd_kernel"),
