@@ -138,23 +138,34 @@ def dyadic_gap(X: torch.Tensor, X_ref: torch.Tensor, chunk: int = 5):
     return gap, top
 
 
-def fit_numbers(got: Outcome, ref: Outcome, fit: dict, settle: int) -> dict:
-    """The compared numbers for one fit (see the module docstring);
-    ``settle`` iterations are left out of the widest ELBO gap (never all
-    of them)."""
-    gap, top = dyadic_gap(got.X, ref.X)
-    k = min(len(got.elbo), len(ref.elbo))
-    e, er = np.asarray(got.elbo[:k]), np.asarray(ref.elbo[:k])
+def elbo_gaps(elbo: Sequence[float], ref_elbo: Sequence[float]):
+    """The relative gap ``|e - e_ref| / |e_ref|`` at each iteration both
+    ELBO histories hold."""
+    k = min(len(elbo), len(ref_elbo))
+    e, er = np.asarray(elbo[:k]), np.asarray(ref_elbo[:k])
     with np.errstate(invalid="ignore", divide="ignore"):
-        rel = np.abs(e - er) / np.abs(er)
-    elbo_gap = float(np.median(rel)) if k else math.inf
-    tail_gap = float(np.max(rel[min(settle, k - 1):])) if k else math.inf
+        return np.abs(e - er) / np.abs(er)
+
+
+def tail_gap(rel, settle: int) -> float:
+    """The widest of the gaps ``rel`` after ``settle`` iterations (never
+    all of them)."""
+    return float(np.max(rel[min(settle, len(rel) - 1):])) if len(rel) \
+        else math.inf
+
+
+def fit_numbers(got: Outcome, ref: Outcome, fit: dict, settle: int) -> dict:
+    """The compared numbers for one fit (see the module docstring)."""
+    gap, top = dyadic_gap(got.X, ref.X)
+    rel = elbo_gaps(got.elbo, ref.elbo)
+    elbo_gap = float(np.median(rel)) if len(rel) else math.inf
+    tail = tail_gap(rel, settle)
     if not np.all(np.isfinite(rel)) or len(ref.elbo) < len(got.elbo):
-        elbo_gap = tail_gap = math.inf
+        elbo_gap = tail = math.inf
     stop = stop_index(got.elbo, fit["tolerance"], fit["patience"],
                       fit["max_iter"])
     return {"mu_gap": gap / top if top > 0 else math.inf,
-            "elbo_median_gap": elbo_gap, "elbo_tail_gap": tail_gap,
+            "elbo_median_gap": elbo_gap, "elbo_tail_gap": tail,
             "stop_gap": float(abs(len(got.elbo) - stop))}
 
 

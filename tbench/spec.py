@@ -2,9 +2,10 @@
 
 ``BENCHMARK.json`` at the checkout's root names each cell's configuration
 and traffic; a configuration's file is the one its entry names, a traffic
-mix is ``tbench/traffic/<traffic>.json``, a cell's comparison limits are
-``tbench/checks/<cell>.json`` and every metric, end to end or per layer, is
-read by ``tbench/metrics/<metric>.py``.  A traffic mix names its ``kind``:
+mix is ``tbench/traffic/<traffic>.json``, a cell's comparison limits and
+the sizes its CPU tests run at are ``tbench/checks/<cell>.json`` and
+every metric, end to end or per layer, is read by
+``tbench/metrics/<metric>.py``.  A traffic mix names its ``kind``:
 the kind of fit it streams, driven through the program by
 ``tbench/traffic/<kind>.py`` and replayed by the plain reference in
 ``tbench/reference/kinds/<kind>.py``.  Adding a cell, a configuration, a
@@ -28,7 +29,7 @@ class Cell(NamedTuple):
     chips: int
     config: dict      # the configuration's file
     traffic: dict     # the traffic mix's file
-    checks: dict      # sample size and the limits of the compared numbers
+    checks: dict      # sample size, settle, limits, the CPU tests' sizes
     end_to_end: list  # BENCHMARK.json metric entries this cell reports
     per_layer: list
 
@@ -54,14 +55,17 @@ def _reports(metric: dict, cell: str) -> bool:
 
 
 def load_cell(name: str, root: pathlib.Path = ROOT) -> Cell:
+    """The cell ``name`` of ``root``'s ``BENCHMARK.json``, its data files
+    read under ``root``."""
     bench = load_benchmark(root)
     w = _named(bench["workloads"], name, "workload")
     conf = _named(bench["configs"], w["config"], "config")
+    data = root / PACKAGE.name
     return Cell(
         name=name, chips=int(w["chips"]),
         config=load_json(root / conf["file"]),
-        traffic=load_json(PACKAGE / "traffic" / f"{w['traffic']}.json"),
-        checks=load_json(PACKAGE / "checks" / f"{name}.json"),
+        traffic=load_json(data / "traffic" / f"{w['traffic']}.json"),
+        checks=load_json(data / "checks" / f"{name}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)])
 
@@ -86,7 +90,9 @@ def metric_reader(name: str):
 
 def traffic_kind(kind: str):
     """The program's side of a kind of fit: ``tbench/traffic/<kind>.py``,
-    whose ``engine(stream, k)`` builds fit k's engine."""
+    whose ``engine(stream, k)`` builds fit k's engine, ``WRAPPED`` names
+    the program functions a traced run wraps in the benchmark's spans and
+    ``FAULT_TARGETS`` where the fault tests plant their faults."""
     return _module("traffic", kind)
 
 

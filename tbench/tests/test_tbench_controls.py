@@ -5,10 +5,13 @@ that returns its state unchanged, half of the nodes left out of each
 update, an answer altered where it is produced, a stop moved by one
 iteration), each against the cell's own limits.
 
-On the CPU: the faults on every cell at a small size, through the port's
-twins, and the control at the quick-start cell's own size and at n=24 for
-the north-star cells.  On the card (``cuda`` marker): the control at every
-cell's own size.
+On the CPU, at the sizes each cell's checks file states under ``cpu``:
+the faults at its ``size``, through the port's twins, planted where the
+cell's traffic kind names (``FAULT_TARGETS`` in
+``tbench/traffic/<kind>.py``), and the control at its ``control_size``
+(null: the cell's own size).  On the card (``cuda`` marker): the control
+at every cell's own size.  The checks below take a cell, so a cell added
+with data files alone is held to them as it stands.
 
     python -m pytest tbench/tests -q
     python -m pytest -o addopts="" --noconftest tbench/tests -m cuda -q  # card
@@ -16,6 +19,7 @@ cell's own size.
 
 from __future__ import annotations
 
+import importlib
 import time
 
 import pytest
@@ -24,13 +28,24 @@ import torch
 from tbench import harness, spec
 from tbench.reference.judge import reference_fit
 from tbench.stream import FitStream
-from tbench.tests.test_tbench_harness import CELLS, tiny_cell
+from tbench.tests.test_tbench_harness import CELLS, shrink
 
-SMALL = {"n2000_smf_cold": (12, 5, 2), "n2000_smoothed_warm": (12, 5, 2),
-         "demo_fits": (8, 4, 1)}
-# the control's size on the CPU: the quick-start cell's own, n=24 else
-CONTROL = {"n2000_smf_cold": (24, 5, 2), "n2000_smoothed_warm": (24, 5, 2),
-           "demo_fits": None}
+# The cells whose checks file states their CPU sizes; a cell without them
+# fails test_checks_state_the_cpu_sizes alone.
+SIZED = [name for name in CELLS if "cpu" in spec.load_cell(name).checks]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_checks_state_the_cpu_sizes(name):
+    checks = spec.load_cell(name).checks
+    assert "cpu" in checks, (
+        f"tbench/checks/{name}.json has no key 'cpu': "
+        '{"size": [n, T, r], "control_size": [n, T, r] or null}')
+    cpu = checks["cpu"]
+    assert set(cpu) == {"size", "control_size"}, cpu
+    for size in (cpu["size"], cpu["control_size"] or [1, 1, 1]):
+        assert len(size) == 3 and all(
+            isinstance(k, int) and k > 0 for k in size), cpu
 
 
 def _control_numbers(cell, seed, device):
@@ -40,34 +55,43 @@ def _control_numbers(cell, seed, device):
     return harness.judge(cell, stream, [(rec, ctrl)])
 
 
-def _cpu_cell(name):
-    cell = spec.load_cell(name)
-    if CONTROL[name]:
-        cell = tiny_cell(name, *CONTROL[name], max_iter=500)
+def cpu_control_cell(cell):
+    """``cell`` at its control size on the CPU, the reference there too."""
+    size = cell.checks["cpu"]["control_size"]
+    if size:
+        cell = shrink(cell, *size, max_iter=500)
     return cell._replace(checks=dict(cell.checks, reference_device="cpu"))
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_control_fails_on_the_cpu(name):
+def check_control_fails_on_the_cpu(cell):
     torch.set_num_threads(1)
-    cell = _cpu_cell(name)
+    cell = cpu_control_cell(cell)
     numbers = _control_numbers(cell, 2**32 + 13, torch.device("cpu"))
     assert not harness.passed(harness.checks_of(numbers,
                                                 cell.checks["limits"]))
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_float32_reference_passes(name):
-    """The limits fail what lies below float32, not float32 itself: the
-    plain reference in float32, in the program's place, is correct."""
+def check_float32_reference_passes(cell):
     torch.set_num_threads(1)
-    cell = _cpu_cell(name)
+    cell = cpu_control_cell(cell)
     stream = FitStream(cell, 2**32 + 13, torch.device("cpu"))
     rec = stream.run_fit(0, keep=False)
     got = reference_fit(cell, stream.Y[rec.network], stream.mask(rec.index),
                         rec.engine_seed, "f32")
     numbers = harness.judge(cell, stream, [(rec, got)])
     assert harness.passed(harness.checks_of(numbers, cell.checks["limits"]))
+
+
+@pytest.mark.parametrize("name", SIZED)
+def test_control_fails_on_the_cpu(name):
+    check_control_fails_on_the_cpu(spec.load_cell(name))
+
+
+@pytest.mark.parametrize("name", SIZED)
+def test_float32_reference_passes(name):
+    """The limits fail what lies below float32, not float32 itself: the
+    plain reference in float32, in the program's place, is correct."""
+    check_float32_reference_passes(spec.load_cell(name))
 
 
 @pytest.mark.cuda
@@ -126,31 +150,25 @@ FAULTS = {"unchanged": ("step", _unchanged),
           "half_left_out": ("step", _half_left_out),
           "answer_altered": ("fit", _answer_altered),
           "stop_moved": ("rule", _stop_moved)}
-# where each fault is planted: the block steps, the fit functions (the
-# answer as it leaves them) and the stopping rule
-TARGETS = {("smf_fits", "step"): ("tame_torch.inference.cavi",
-                                  "cavi_step_block"),
-           ("smoothed_fits", "step"): ("tame_torch.inference.smoothed",
-                                       "smoothed_step_block"),
-           ("smf_fits", "fit"): ("tame_torch.inference.cavi", "fit_cavi"),
-           ("smoothed_fits", "fit"): ("tame_torch.inference.smoothed",
-                                      "fit_cavi_smoothed"),
-           ("smf_fits", "rule"): ("tame_torch.inference.cavi", "_StopRule"),
-           ("smoothed_fits", "rule"): ("tame_torch.inference.cavi",
-                                       "_StopRule")}
 
 
-@pytest.mark.parametrize("fault", list(FAULTS))
-@pytest.mark.parametrize("name", CELLS)
-def test_fault_comes_out_not_correct(name, fault, monkeypatch):
-    import importlib
-
+def check_fault_comes_out_not_correct(cell, fault, monkeypatch):
+    """``fault`` planted where the cell's traffic kind names, in a run of
+    the cell at its CPU size: ``correct`` comes out false."""
     torch.set_num_threads(1)
-    cell = tiny_cell(name, *SMALL[name], max_iter=500)
+    cell = shrink(cell, *cell.checks["cpu"]["size"], max_iter=500)
     where, make = FAULTS[fault]
-    module, fn = TARGETS[(cell.traffic["kind"], where)]
+    targets = spec.traffic_kind(cell.traffic["kind"]).FAULT_TARGETS
+    module, fn = targets[where]
     mod = importlib.import_module(module)
     monkeypatch.setattr(mod, fn, make(getattr(mod, fn)))
     res = harness.run(cell, 2**34 + 3, 0.0, False, torch.device("cpu"),
                       time.perf_counter(), log=lambda line: None)
     assert not res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("fault", list(FAULTS))
+@pytest.mark.parametrize("name", SIZED)
+def test_fault_comes_out_not_correct(name, fault, monkeypatch):
+    check_fault_comes_out_not_correct(spec.load_cell(name), fault,
+                                      monkeypatch)

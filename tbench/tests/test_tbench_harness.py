@@ -39,11 +39,17 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_found_by_name(name):
     cell = spec.load_cell(name)
+    # the harness runs one process on one card and starts no ranks
     assert cell.chips == 1
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
     assert len(cell.end_to_end) >= 2 and cell.per_layer
     assert set(cell.checks["limits"]) == set(judge.KEYS)
-    assert cell.config["reduced"] == []
+    entry = next(w for w in BENCH["workloads"] if w["name"] == name)
+    reduced = next(c["reduced"] for c in BENCH["configs"]
+                   if c["name"] == entry["config"])
+    assert sorted(cell.config["reduced"]) == sorted(reduced)
+    for key in reduced:
+        assert key in cell.config["model"] or key in cell.config["fit"], key
     for key in ("kind", "init", "corrected", "pool", "mask_frac"):
         assert key in cell.traffic
     assert callable(spec.traffic_kind(cell.traffic["kind"]).engine)
@@ -51,8 +57,19 @@ def test_cell_found_by_name(name):
 
 
 def test_kinds_found_by_name():
-    for name in ("smf_fits", "smoothed_fits"):
-        assert callable(spec.traffic_kind(name).engine)
+    """Every ``tbench/traffic/<kind>.py``: its engine, the program
+    functions it wraps and where the fault tests plant their faults, all
+    found in the program, and the reference's replay of the kind."""
+    import importlib
+
+    kinds = sorted(p.stem for p in (spec.PACKAGE / "traffic").glob("*.py"))
+    assert kinds
+    for name in kinds:
+        kind = spec.traffic_kind(name)
+        assert callable(kind.engine)
+        assert set(kind.FAULT_TARGETS) == {"step", "fit", "rule"}, name
+        for module, fn, *_ in (*kind.WRAPPED, *kind.FAULT_TARGETS.values()):
+            assert callable(getattr(importlib.import_module(module), fn))
         ref = spec.reference_kind(name)
         assert callable(ref.check) and callable(ref.start)
         assert ref.iteration_flops(2000, 50, 10, 16) > 0
@@ -392,10 +409,14 @@ def test_forbidden_modules_compare_whole_top_level_names(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def tiny_cell(name, n, T, r, pool=3, max_iter=60):
-    """A cell of the benchmark at a small size: the engines' default block
-    count, ``pool`` networks, two traced fits, at most ``max_iter``
+    """A cell of the benchmark at a small size (see :func:`shrink`)."""
+    return shrink(spec.load_cell(name), n, T, r, pool, max_iter)
+
+
+def shrink(cell, n, T, r, pool=3, max_iter=60):
+    """``cell`` at a small size: the engines' default block count,
+    ``pool`` networks, two traced fits, at most ``max_iter``
     iterations."""
-    cell = spec.load_cell(name)
     config = copy.deepcopy(cell.config)
     config["model"].update(n_nodes=n, n_time=T, latent_dim=r)
     config["fit"]["max_iter"] = max_iter

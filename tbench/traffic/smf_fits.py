@@ -9,6 +9,11 @@ configuration's ``num_blocks`` states it)."""
 WRAPPED = (("tame_torch.inference.cavi", "fit_cavi", "tbench.fit_fn"),
            ("tame_torch.inference.cavi", "cavi_step_block", "tbench.step"),
            ("tame_torch.inference.cavi", "residual_stats", "tbench.diag"))
+# Where the fault tests plant their faults: the block step, the fit
+# function (the answer as it leaves it) and the stopping rule.
+FAULT_TARGETS = {"step": ("tame_torch.inference.cavi", "cavi_step_block"),
+                 "fit": ("tame_torch.inference.cavi", "fit_cavi"),
+                 "rule": ("tame_torch.inference.cavi", "_StopRule")}
 
 
 def engine(stream, k: int):

@@ -9,6 +9,13 @@ WRAPPED = (("tame_torch.inference.smoothed", "fit_cavi_smoothed",
            ("tame_torch.inference.smoothed", "smoothed_step_block",
             "tbench.step"),
            ("tame_torch.inference.cavi", "residual_stats", "tbench.diag"))
+# Where the fault tests plant their faults: the block step, the fit
+# function (the answer as it leaves it) and the stopping rule.
+FAULT_TARGETS = {"step": ("tame_torch.inference.smoothed",
+                          "smoothed_step_block"),
+                 "fit": ("tame_torch.inference.smoothed",
+                         "fit_cavi_smoothed"),
+                 "rule": ("tame_torch.inference.cavi", "_StopRule")}
 
 
 def engine(stream, k: int):
