@@ -44,9 +44,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    hidden (the setting of ``scripts/masked_scale_probe.py``), through
    ``TemporalAMEStructuredMFVI(mask=..., mixed_precision=True,
    diag_mode="stats", learning_rate=0.8)``: (i) the same flags with no
-   mask, (ii) masked through the bf16 einsum mask path, (iii) masked with
-   ``TAME_PACKED_MASK=1``, through K5 (32 launches per iteration), each
-   to its stop; then the three timed in turns over 40 iterations each;
+   mask, (ii) masked through the bf16 einsum mask path (the card's route
+   is K5 here: :func:`packed_mask_env` holds ``cavi.use_packed_mask`` to
+   the einsum), (iii) masked with ``TAME_PACKED_MASK=1``, through K5 (32
+   launches per iteration), each to its stop; then the three timed in
+   turns over 40 iterations each;
 8. the masked smoothed fit (warm init, the same mask and flags,
    ``TAME_PACKED_MASK=1``): K4 and K5 in every block phase;
 9. masked variational EM (2 EM iterations of <= 30 inner ones);
@@ -857,13 +859,22 @@ def hidden_dyads(n: int, T: int) -> torch.Tensor:
 @contextlib.contextmanager
 def packed_mask_env(on: bool):
     """``TAME_PACKED_MASK=1`` (masked contractions through K5) inside the
-    block when ``on``, unset otherwise; the old value is restored."""
+    block when ``on``; otherwise unset, and ``cavi.use_packed_mask`` held
+    to the einsum, whose bf16 path the card's masked fits under
+    ``mixed_precision`` leave for K5 by default; the old values are
+    restored."""
+    from tame_torch.inference import cavi
+
     old = os.environ.pop("TAME_PACKED_MASK", None)
+    route = cavi.use_packed_mask
     if on:
         os.environ["TAME_PACKED_MASK"] = "1"
+    else:
+        cavi.use_packed_mask = lambda *args, **kwargs: False
     try:
         yield
     finally:
+        cavi.use_packed_mask = route
         os.environ.pop("TAME_PACKED_MASK", None)
         if old is not None:
             os.environ["TAME_PACKED_MASK"] = old

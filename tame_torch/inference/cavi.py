@@ -18,13 +18,17 @@ a whole small fit on the card goes through :mod:`tame_torch.ops.fused_fit`.
 
 Missing-data fits (``mask``) assemble the observation terms from masked
 partner statistics, one concatenated-panel contraction of the mask per
-phase (:func:`_masked_obs_precision`); with ``TAME_PACKED_MASK=1`` those
-contractions read the mask as int8 through K5
-(:mod:`tame_torch.ops.masked_contract`).  ``mixed_precision`` stores the
+phase (:func:`_masked_obs_precision`).  ``mixed_precision`` stores the
 dyad weights (and the mask) in bf16 with float32 sums
 (:func:`_eta_contract`); ``diag_mode="stats"`` computes the ELBO/MSE from
 sufficient statistics with no O(n^2 T) residual pass
-(:func:`_residual_stats_from_moments`, :func:`_masked_residual_stats`).
+(:func:`_residual_stats_from_moments`, :func:`_masked_residual_stats`),
+whose panels go in as two bf16 halves where a contraction rounds to bf16
+(:func:`_diag_contract`).  A masked fit's contractions read the mask as int8 through K5
+(:mod:`tame_torch.ops.masked_contract`) on the card under
+``mixed_precision`` (the production flags: bf16 weights, stats
+diagnostics, a mask), and wherever ``TAME_PACKED_MASK=1`` asks for it
+(:func:`use_packed_mask`).
 
 PyTorch has no device ``while_loop``: :func:`fit_loop` is a Python loop
 that reads each iteration's ELBO on the host and applies the JAX loop's
@@ -181,11 +185,32 @@ def _data_mean_cross_terms(obs: ObsConstants, U: torch.Tensor,
     the terms are then those rows' share of the sums."""
     p, q = R_inv[0, 0], R_inv[0, 1]
     r = U.shape[-1]
-    out = _eta_contract(obs.W0, torch.cat([V, U], -1))
+    out = _diag_contract(lambda Z: _eta_contract(obs.W0, Z), obs.W0,
+                         torch.cat([V, U], -1))
     s1 = torch.sum(U[rows] * out[..., :r])
     s3 = torch.sum(V[rows] * out[..., r:])
     denom = p * p - q * q
     return (p * s1 - q * s3) / denom, (p * s3 - q * s1) / denom
+
+
+def _diag_contract(contract, against, Z: torch.Tensor) -> torch.Tensor:
+    """``contract(Z)`` for the stats diagnostics.  Where the contraction
+    rounds its panel to bf16 (bf16 weights or mask, a mask packed for K5)
+    the panel goes in as two bf16 halves, its bf16 part and the bf16 of
+    the rest, side by side in one contraction of twice the columns, whose
+    sums are added: ~16 bits of the panel.  The diagnostics' expansion
+    subtracts sums ~50 times the residual sum it leaves, so a panel in
+    bf16 alone moved the production flags' ELBO by ~1e-3 at n=2000 and
+    by ~2e-4 from one iteration to the next as entries crossed rounding
+    boundaries: twice the stopping rule's tolerance, so the fits stopped
+    at random.  The steps keep their bf16 panels."""
+    if not (isinstance(against, (PackedMask, PackedRows))
+            or against.dtype == torch.bfloat16):
+        return contract(Z)
+    hi = Z.to(torch.bfloat16).to(Z.dtype)
+    K = Z.shape[-1]
+    C = contract(torch.cat([hi, Z - hi], -1))
+    return C[..., :K] + C[..., K:]
 
 
 def _residual_stats_from_moments(dc: DiagConstants, obs: ObsConstants,
@@ -258,7 +283,7 @@ def _masked_residual_stats(dc: DiagConstants, obs: ObsConstants,
     a1, b1 = a_all[..., None], b_all[..., None]
     Z = torch.cat([torch.ones_like(a1), a1, b1, b1 * b1, U_all, V, a1 * V,
                    b1 * V, b1 * U_all, VV, OVU], -1)       # (n, T, K)
-    C = _mask_contract(mask, Z)                           # (m, T, K)
+    C = _diag_contract(lambda P: _mask_contract(mask, P), mask, Z)
     cnt, Ma, Mb, Mb2 = C[..., 0], C[..., 1], C[..., 2], C[..., 3]
     MU, MV, MaV, MbV, MbU = C[..., 4:4 + 5 * r].split(r, -1)
     MVV, MOVU = C[..., 4 + 5 * r:].split(r * r, -1)
@@ -300,14 +325,19 @@ class PackedRows(NamedTuple):
     stripes: list
 
 
+def _k5(stripe: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """One packed stripe against a panel through K5 (its twin on the CPU),
+    counted as one ``k5_contracts``."""
+    profiling.count(profiling.K5_CONTRACTS)
+    return masked_contract.packed_rows_contract(stripe, Z)
+
+
 def _packed_contract_all(pm: PackedMask, Z: torch.Tensor) -> torch.Tensor:
     """Full-mask partner contraction through K5: every block stripe,
     concatenated back to node order.  Z: (n, T, K)."""
     nb = pm.blocks.shape[0]
     bs = Z.shape[0] // nb
-    return torch.cat([masked_contract.packed_rows_contract(pm.blocks[k],
-                                                           Z)[:bs]
-                      for k in range(nb)])
+    return torch.cat([_k5(pm.blocks[k], Z)[:bs] for k in range(nb)])
 
 
 def _mask_contract(mask, Z: torch.Tensor) -> torch.Tensor:
@@ -317,8 +347,8 @@ def _mask_contract(mask, Z: torch.Tensor) -> torch.Tensor:
     if isinstance(mask, PackedMask):
         return _packed_contract_all(mask, Z)
     if isinstance(mask, PackedRows):
-        return torch.cat([masked_contract.packed_rows_contract(s, Z)
-                          [:s.shape[1]] for s in mask.stripes if s.shape[1]])
+        return torch.cat([_k5(s, Z)[:s.shape[1]] for s in mask.stripes
+                          if s.shape[1]])
     return _eta_contract(mask, Z)
 
 
@@ -329,8 +359,7 @@ def make_block_mask_contract(mask, bs: int):
     CAVI and smoothed block steps."""
     def contract(b: int, Z: torch.Tensor) -> torch.Tensor:
         if isinstance(mask, PackedMask):
-            return masked_contract.packed_rows_contract(mask.blocks[b],
-                                                        Z)[:bs]
+            return _k5(mask.blocks[b], Z)[:bs]
         return _eta_contract(mask[b * bs:(b + 1) * bs], Z)
     return contract
 
@@ -1009,17 +1038,38 @@ class FitInputs(NamedTuple):
 
 
 def packed_mask_requested() -> bool:
-    """``TAME_PACKED_MASK=1`` routes masked contractions through K5 (opt
-    in, as in the JAX package, which measured it slower on its TPU)."""
+    """Whether ``TAME_PACKED_MASK=1`` asks for K5 on every masked
+    contraction (the sharded loops' only route to it)."""
     return os.environ.get("TAME_PACKED_MASK") == "1"
 
 
+def use_packed_mask(mask_device, mixed_precision: bool,
+                    requested: Optional[bool] = None) -> bool:
+    """Whether a fit's masked contractions go through K5: a mask on
+    ``mask_device`` (None: no mask) where ``requested`` (default:
+    :func:`packed_mask_requested`), or on the card under
+    ``mixed_precision``.  There K5 keeps the bf16 einsum's rounding (the
+    panel rounded to bf16, the products summed in float32) and on an H100
+    takes 0.027 ms a 125-row stripe at n=2000, T=50, where a bf16 ``bmm``
+    takes 0.075 ms; a float32 mask keeps the float32 einsum (K5 would
+    round its panels), and the CPU takes K5's twin only when asked.
+    :func:`fit_cavi` and ``smoothed.fit_cavi_smoothed`` ask it."""
+    if mask_device is None:
+        return False
+    if requested is None:
+        requested = packed_mask_requested()
+    return requested or (torch.device(mask_device).type == "cuda"
+                         and mixed_precision)
+
+
+@profiling.spanned("fit.inputs")
 def fit_inputs(Y: torch.Tensor, R_inv: torch.Tensor, mask, *,
                mixed_precision: bool, diag_mode: str, packed_mask: bool,
                num_blocks: int) -> FitInputs:
     """Dyad weights (bf16 under ``mixed_precision``), stats-diagnostics
     constants and the mask in the layout the contractions read: packed
-    for K5 with ``num_blocks`` stripes when ``packed_mask``, bf16 under
+    for K5 with ``num_blocks`` stripes when ``packed_mask``
+    (:func:`use_packed_mask` decides), bf16 under
     ``mixed_precision`` (0/1 is exact in bf16), else as given.  ``Y`` is
     zeroed at masked entries with ``where`` first, so NaN-coded hidden
     dyads never reach the weights or the diagnostics."""
@@ -1196,9 +1246,10 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     (1 = observed; symmetric — both directions of a dyad live in one
     ``Y[i, j, t]`` entry; its diagonal is zeroed here).  Masked entries of
     ``Y`` are never read (NaN coding is safe); the observation terms and
-    diagnostics run over observed dyads.  ``TAME_PACKED_MASK=1`` sends
-    every masked contraction through K5
-    (:mod:`tame_torch.ops.masked_contract`, its twin on the CPU).
+    diagnostics run over observed dyads.  Every masked contraction goes
+    through K5 (:mod:`tame_torch.ops.masked_contract`) on the card under
+    ``mixed_precision``, and under ``TAME_PACKED_MASK=1`` anywhere (its
+    twin on the CPU); otherwise through the einsum (:func:`use_packed_mask`).
 
     ``fused`` selects K3 (:mod:`tame_torch.ops.fused_fit`): ``"auto"`` uses
     it exactly when ``Y`` is on a CUDA device,
@@ -1272,5 +1323,6 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
                     buf_size=buf, carry_elbo=carry_elbo,
                     carry_patience=carry_patience,
                     mixed_precision=mixed_precision, diag_mode=diag_mode,
-                    mask=mask,
-                    packed_mask=mask is not None and packed_mask_requested())
+                    mask=mask, packed_mask=use_packed_mask(
+                        None if mask is None else mask.device,
+                        mixed_precision))

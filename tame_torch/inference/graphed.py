@@ -23,7 +23,8 @@ an iteration becomes one launch of each graph where the eager step
 enqueues ~1,300 kernels at n=2000.  Each replayed step counts one
 ``graphed_iters`` (:mod:`tame_torch.utils.profiling`), and each replay
 adds the launches its capture counted to the kernels' ``launches``
-counters, so they count what ran.
+counters, and makes again the counts its capture made (``k5_contracts``),
+so they count what ran.
 
 Graphs capture into one memory pool per card, kept for the process by a
 one-kernel anchor graph and shared by the loops' graphs one fit at a time
@@ -97,7 +98,7 @@ def _kernels() -> List[Callable]:
 class _Graph:
     """One call ``fn(arg)`` (then ``tail(out)``) captured on the current
     stream into ``pool`` and replayed once: its graph, its output and the
-    kernel launches the capture counted."""
+    kernel launches and program counts the capture counted."""
 
     def __init__(self, fn: Callable, arg, pool, tail=None):
         kernels = _kernels()
@@ -105,10 +106,11 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
-            out = fn(arg)
-            if tail is not None:
-                tail(out)
-                out = None
+            with profiling.counts_made() as self.counts:
+                out = fn(arg)
+                if tail is not None:
+                    tail(out)
+                    out = None
         except BaseException:
             with contextlib.suppress(RuntimeError):
                 self.graph.capture_end()
@@ -125,6 +127,8 @@ class _Graph:
         self.graph.replay()
         for kernel, k in self.launches:
             kernel.launches += k
+        for name, k in self.counts.items():
+            profiling.count(name, k)
 
 
 class LoopRunner:

@@ -355,10 +355,11 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
 
     ``mask``, ``mixed_precision`` and ``diag_mode`` as in
     ``cavi.fit_cavi``: the mask's diagonal is zeroed, masked entries of
-    ``Y`` are never read, and ``TAME_PACKED_MASK=1`` sends the masked
-    contractions through K5, packed with the block count.  Under a mask
-    the JAX function leaves its Pallas smoother; this one does not (see
-    :func:`smoothed_step`).
+    ``Y`` are never read, and the masked contractions go through K5,
+    packed with the block count, where ``cavi.use_packed_mask`` says (on
+    the card under ``mixed_precision``; anywhere under
+    ``TAME_PACKED_MASK=1``).  Under a mask the JAX function leaves its
+    Pallas smoother; this one does not (see :func:`smoothed_step`).
 
     ``Y`` and ``init`` from :func:`tame_torch.parallel.shard_smoothed_inputs`
     run the fit sharded over the mesh's ``nodes`` ranks
@@ -402,7 +403,8 @@ def fit_cavi_smoothed(Y: torch.Tensor, params: AMEParams,
     fi = cavi.fit_inputs(
         Y, params.R_inv, mask, mixed_precision=mixed_precision,
         diag_mode=diag_mode,
-        packed_mask=mask is not None and cavi.packed_mask_requested(),
+        packed_mask=cavi.use_packed_mask(
+            None if mask is None else mask.device, mixed_precision),
         num_blocks=num_blocks if update_mode == "block" else 1)
     pri = cavi.precompute_priors(params)
     p_, q_ = params.R_inv[0, 0], params.R_inv[0, 1]

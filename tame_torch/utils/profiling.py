@@ -7,8 +7,9 @@
   :func:`clear_spans` empties the buffer;
 * :func:`count` — integer counters, always on (``syncs``: the host's
   syncs with the card; ``graphed_iters``: fit-loop iterations replayed
-  as CUDA graphs, :mod:`tame_torch.inference.graphed`); :func:`counters`
-  reads them beside the kernels' launch counts;
+  as CUDA graphs, :mod:`tame_torch.inference.graphed`; ``k5_contracts``:
+  masked contractions of a packed stripe through K5 or its twin);
+  :func:`counters` reads them beside the kernels' launch counts;
 * :func:`trace` — a ``torch.profiler`` trace of the enclosed block (CPU
   and, with a card, CUDA activity), written as a Chrome trace with the
   program's spans in it;
@@ -19,11 +20,14 @@
 Spans of the fit path, outermost first: ``engine.build`` (an engine's
 constructor) holding ``engine.start`` (its random or warm start);
 ``engine.fit`` (an engine's ``fit``) holding ``fit.run`` (``fit_cavi``,
-``fit_cavi_smoothed``), which holds a ``loop.step`` around each
-iteration's update call and a ``loop.readback`` around each read of
-device memory to the host.  Each readback counts one ``syncs``, as does
-every other place of the fit path that waits for the card: a synchronous
-copy to it, a library call that checks its result on the host.
+``fit_cavi_smoothed``), which holds ``fit.inputs`` (the loop-invariant
+inputs: the dyad weights, bf16 under mixed precision, the stats
+diagnostics' constants and the mask as the contractions read it, packed
+for K5 or bf16), a ``loop.step`` around each iteration's update call and
+a ``loop.readback`` around each read of device memory to the host.  Each
+readback counts one ``syncs``, as does every other place of the fit path
+that waits for the card: a synchronous copy to it, a library call that
+checks its result on the host.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 SPAN_LIMIT = 1 << 18   # records the buffer holds; later ones are dropped
 SYNCS = "syncs"
 GRAPHED_ITERS = "graphed_iters"
+K5_CONTRACTS = "k5_contracts"
 # The kernels' launch counters (``<function>.launches``), by module.
 KERNELS = (("cholesky", "spd_solve_inv_kernel"),
            ("cholesky", "logdet_spd_kernel"),
@@ -196,6 +201,20 @@ def count(name: str, k: int = 1) -> None:
         _COUNTS[name] = _COUNTS.get(name, 0) + k
     if _profiling():
         _BUFFER.mark(name, k)
+
+
+@contextlib.contextmanager
+def counts_made() -> Iterator[Dict[str, int]]:
+    """A dict that holds, once the block has run, the counts
+    :func:`count` made in it, by name (what a CUDA graph's capture
+    counted, which each of its replays counts again)."""
+    with _COUNT_LOCK:
+        before = dict(_COUNTS)
+    made: Dict[str, int] = {}
+    yield made
+    with _COUNT_LOCK:
+        made.update((k, v - before.get(k, 0)) for k, v in _COUNTS.items()
+                    if v != before.get(k, 0))
 
 
 def count_syncs(x: torch.Tensor, k: int = 1) -> None:

@@ -115,6 +115,60 @@ def test_smoothed_loop_counts_one_sync_an_iteration():
     assert out.n_iter == 7 and _syncs() - before == out.n_iter
 
 
+def _masked_problem(seed=6):
+    """A masked quick-start network at the production flags' data: the
+    model, a mask hiding 30 % of the dyad-times and a Good-SMF start."""
+    from tame_torch.models import random_dyad_mask
+
+    model = _quick_start(seed)
+    mask = random_dyad_mask(torch.Generator().manual_seed(seed), 15, 10, 0.3)
+    init = cavi.init_state(torch.Generator().manual_seed(seed + 1), 15, 10,
+                           6, "full", 0.1, 0.5)
+    return model, mask, init
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_fit_inputs_span_once_a_fit(engine):
+    """``fit.inputs`` (the weights, the stats constants, the mask's
+    layout) is recorded once a fit, inside ``fit.run``."""
+    model = _quick_start()
+    with _cpu_profile():
+        for _ in range(2):
+            ENGINES[engine](model).fit(max_iter=4, verbose=False)
+    recs = profiling.spans()
+    inputs = [r for r in recs if r.name == "fit.inputs"]
+    runs = [i for i, r in enumerate(recs) if r.name == "fit.run"]
+    assert len(inputs) == len(runs) == 2
+    assert [r.parent for r in inputs] == runs
+
+
+@pytest.mark.parametrize("packed, blocks", [("1", 5), (None, 5), ("1", 3)])
+def test_k5_counter_counts_two_stripes_a_block_an_iteration(
+        monkeypatch, packed, blocks):
+    """A masked block fit with bf16 weights and stats diagnostics counts
+    ``k5_contracts`` 2 x ``num_blocks`` an iteration on the K5 route (the
+    block phases' partner panels and the diagnostics' moment panel, one
+    stripe a block each) and none on the einsum route; under a profiler
+    each count is a record."""
+    if packed is None:
+        monkeypatch.delenv("TAME_PACKED_MASK", raising=False)
+    else:
+        monkeypatch.setenv("TAME_PACKED_MASK", packed)
+    model, mask, init = _masked_problem()
+    before = profiling.counters().get(profiling.K5_CONTRACTS, 0)
+    with _cpu_profile():
+        out = cavi.fit_cavi(model.Y, model.params, init, structure="full",
+                            update_mode="block", num_blocks=blocks,
+                            max_iter=7, learning_rate=0.8, tolerance=0.0,
+                            mixed_precision=True, diag_mode="stats",
+                            mask=mask)
+    want = 2 * blocks * out.n_iter if packed else 0
+    assert out.n_iter == 7
+    assert profiling.counters()[profiling.K5_CONTRACTS] - before == want
+    assert sum(r.name == profiling.K5_CONTRACTS
+               for r in profiling.spans()) == want
+
+
 def test_spans_share_the_profilers_clock():
     with _cpu_profile() as prof:
         with profiling.span("clock.outer"):
@@ -211,6 +265,32 @@ def _warned_syncs(fn):
     warned = sum("called a synchronizing CUDA operation" in str(w.message)
                  for w in caught)
     return _syncs() - before, warned
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_the_k5_contractions(cuda_device):
+    """On the card a masked fit under ``mixed_precision`` takes K5 by
+    default, and its replayed iterations count their contractions: 2 x 16
+    an iteration at n=2000, as many as K5's launches."""
+    from tame_torch.models import random_dyad_mask
+    from tame_torch.ops import masked_contract
+
+    big = TemporalAMEModel(2000, 50, 4, device=cuda_device, seed=3)
+    big.generate_data()
+    mask = random_dyad_mask(torch.Generator(device="cuda").manual_seed(1),
+                            2000, 50, 0.3)
+    before = profiling.counters().get(profiling.K5_CONTRACTS, 0)
+    launches = masked_contract.packed_rows_contract_kernel.launches
+    graphed = profiling.counters().get(profiling.GRAPHED_ITERS, 0)
+    hist = TemporalAMEStructuredMFVI(
+        big, learning_rate=0.8, mixed_precision=True, diag_mode="stats",
+        mask=mask, seed=2).fit(max_iter=6, tolerance=0.0, verbose=False)
+    n_iter = len(hist["elbo"])
+    assert n_iter == 6
+    assert profiling.counters()[profiling.GRAPHED_ITERS] - graphed == 5
+    assert (profiling.counters()[profiling.K5_CONTRACTS] - before
+            == masked_contract.packed_rows_contract_kernel.launches
+            - launches == 32 * n_iter)
 
 
 @pytest.mark.cuda
