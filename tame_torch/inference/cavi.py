@@ -22,9 +22,8 @@ phase (:func:`_masked_obs_precision`).  ``mixed_precision`` stores the
 dyad weights (and the mask) in bf16 with float32 sums
 (:func:`_eta_contract`); ``diag_mode="stats"`` computes the ELBO/MSE from
 sufficient statistics with no O(n^2 T) residual pass
-(:func:`_residual_stats_from_moments`, :func:`_masked_residual_stats`),
-whose panels go in as two bf16 halves where a contraction rounds to bf16
-(:func:`_diag_contract`).  A masked fit's contractions read the mask as int8 through K5
+(:func:`_residual_stats_from_moments`, :func:`_masked_residual_stats`).
+A masked fit's contractions read the mask as int8 through K5
 (:mod:`tame_torch.ops.masked_contract`) on the card under
 ``mixed_precision`` (the production flags: bf16 weights, stats
 diagnostics, a mask), and wherever ``TAME_PACKED_MASK=1`` asks for it
@@ -185,32 +184,11 @@ def _data_mean_cross_terms(obs: ObsConstants, U: torch.Tensor,
     the terms are then those rows' share of the sums."""
     p, q = R_inv[0, 0], R_inv[0, 1]
     r = U.shape[-1]
-    out = _diag_contract(lambda Z: _eta_contract(obs.W0, Z), obs.W0,
-                         torch.cat([V, U], -1))
+    out = _eta_contract(obs.W0, torch.cat([V, U], -1))
     s1 = torch.sum(U[rows] * out[..., :r])
     s3 = torch.sum(V[rows] * out[..., r:])
     denom = p * p - q * q
     return (p * s1 - q * s3) / denom, (p * s3 - q * s1) / denom
-
-
-def _diag_contract(contract, against, Z: torch.Tensor) -> torch.Tensor:
-    """``contract(Z)`` for the stats diagnostics.  Where the contraction
-    rounds its panel to bf16 (bf16 weights or mask, a mask packed for K5)
-    the panel goes in as two bf16 halves, its bf16 part and the bf16 of
-    the rest, side by side in one contraction of twice the columns, whose
-    sums are added: ~16 bits of the panel.  The diagnostics' expansion
-    subtracts sums ~50 times the residual sum it leaves, so a panel in
-    bf16 alone moved the production flags' ELBO by ~1e-3 at n=2000 and
-    by ~2e-4 from one iteration to the next as entries crossed rounding
-    boundaries: twice the stopping rule's tolerance, so the fits stopped
-    at random.  The steps keep their bf16 panels."""
-    if not (isinstance(against, (PackedMask, PackedRows))
-            or against.dtype == torch.bfloat16):
-        return contract(Z)
-    hi = Z.to(torch.bfloat16).to(Z.dtype)
-    K = Z.shape[-1]
-    C = contract(torch.cat([hi, Z - hi], -1))
-    return C[..., :K] + C[..., K:]
 
 
 def _residual_stats_from_moments(dc: DiagConstants, obs: ObsConstants,
@@ -283,7 +261,7 @@ def _masked_residual_stats(dc: DiagConstants, obs: ObsConstants,
     a1, b1 = a_all[..., None], b_all[..., None]
     Z = torch.cat([torch.ones_like(a1), a1, b1, b1 * b1, U_all, V, a1 * V,
                    b1 * V, b1 * U_all, VV, OVU], -1)       # (n, T, K)
-    C = _diag_contract(lambda P: _mask_contract(mask, P), mask, Z)
+    C = _mask_contract(mask, Z)                           # (m, T, K)
     cnt, Ma, Mb, Mb2 = C[..., 0], C[..., 1], C[..., 2], C[..., 3]
     MU, MV, MaV, MbV, MbU = C[..., 4:4 + 5 * r].split(r, -1)
     MVV, MOVU = C[..., 4 + 5 * r:].split(r * r, -1)
@@ -1043,23 +1021,20 @@ def packed_mask_requested() -> bool:
     return os.environ.get("TAME_PACKED_MASK") == "1"
 
 
-def use_packed_mask(mask_device, mixed_precision: bool,
-                    requested: Optional[bool] = None) -> bool:
+def use_packed_mask(mask_device, mixed_precision: bool) -> bool:
     """Whether a fit's masked contractions go through K5: a mask on
-    ``mask_device`` (None: no mask) where ``requested`` (default:
-    :func:`packed_mask_requested`), or on the card under
-    ``mixed_precision``.  There K5 keeps the bf16 einsum's rounding (the
-    panel rounded to bf16, the products summed in float32) and on an H100
-    takes 0.027 ms a 125-row stripe at n=2000, T=50, where a bf16 ``bmm``
-    takes 0.075 ms; a float32 mask keeps the float32 einsum (K5 would
-    round its panels), and the CPU takes K5's twin only when asked.
-    :func:`fit_cavi` and ``smoothed.fit_cavi_smoothed`` ask it."""
+    ``mask_device`` (None: no mask) where :func:`packed_mask_requested`,
+    or on the card under ``mixed_precision``.  There K5 keeps the bf16
+    einsum's rounding (the panel rounded to bf16, the products summed in
+    float32) and on an H100 takes 0.027 ms a 125-row stripe at n=2000,
+    T=50, where a bf16 ``bmm`` takes 0.075 ms; a float32 mask keeps the
+    float32 einsum (K5 would round its panels), and the CPU takes K5's
+    twin only when asked.  :func:`fit_cavi` and
+    ``smoothed.fit_cavi_smoothed`` ask it."""
     if mask_device is None:
         return False
-    if requested is None:
-        requested = packed_mask_requested()
-    return requested or (torch.device(mask_device).type == "cuda"
-                         and mixed_precision)
+    return packed_mask_requested() or (
+        torch.device(mask_device).type == "cuda" and mixed_precision)
 
 
 @profiling.spanned("fit.inputs")

@@ -39,12 +39,6 @@ torch.set_num_threads(1)
 
 RTOL_TERMS = 1e-5
 RTOL_HIST = 1e-4
-# bf16 weights with stats diagnostics, held to JAX's exact diagnostics on
-# the same steps: the port's diagnostics take their data-mean cross terms
-# from the bf16 weights, where the exact residual pass reads the float32
-# network (a fixed bf16 rounding of each weight, 1.7e-4 - 3.9e-4 of the
-# ELBO on these grids).
-RTOL_HIST_BF16_STATS = 1e-3
 ATOL_STATE = 1e-4
 # A mean one bf16 rounding step apart: ~4e-3 at O(1) (module docstring).
 ATOL_STATE_BF16 = 1e-2
@@ -85,8 +79,7 @@ def _close(got, ref, rtol=RTOL_TERMS, atol=1e-6):
                                atol=atol)
 
 
-def _assert_fits_agree(tres, jres, n_check, state_atol=ATOL_STATE,
-                       hist_rtol=RTOL_HIST):
+def _assert_fits_agree(tres, jres, n_check, state_atol=ATOL_STATE):
     assert tres.n_iter == int(jres.n_iter)
     assert tres.converged == bool(jres.converged)
     assert tres.diverged == bool(jres.diverged)
@@ -94,7 +87,7 @@ def _assert_fits_agree(tres, jres, n_check, state_atol=ATOL_STATE,
         t = getattr(tres, name).numpy()[:n_check]
         j = np.asarray(getattr(jres, name))[:n_check]
         assert np.isnan(t).tolist() == np.isnan(j).tolist()
-        assert np.nanmax(np.abs(t - j) / np.abs(j)) < hist_rtol, name
+        assert np.nanmax(np.abs(t - j) / np.abs(j)) < RTOL_HIST, name
     _close(tres.X_mean, jres.X_mean, rtol=0, atol=state_atol)
 
 
@@ -214,16 +207,10 @@ class TestFitParity:
             kw.update(num_blocks=4, learning_rate=0.8)
         else:
             kw.update(learning_rate=0.6)
-        # bf16 panels with stats diagnostics: the port's diagnostics carry
-        # their panels at ~16 bits (cavi._diag_contract), so its ELBO is
-        # held to JAX's exact diagnostics on the same bf16 steps
-        jkw = (dict(kw, diag_mode="exact")
-               if mixed_precision and diag_mode == "stats" else kw)
-        jres = jcavi.fit_cavi(jY, jp, js, mask=jm, **jkw)
+        jres = jcavi.fit_cavi(jY, jp, js, mask=jm, **kw)
         tres = tcavi.fit_cavi(tY, tp, ts, mask=tm, **kw)
         assert tres.converged
-        _assert_fits_agree(tres, jres, 64, hist_rtol=(
-            RTOL_HIST_BF16_STATS if jkw is not kw else RTOL_HIST))
+        _assert_fits_agree(tres, jres, 64)
 
     # Two more bf16 paths, over a fixed short horizon (8 iterations,
     # tolerance 0) with exact diagnostics: on this data their fits to the

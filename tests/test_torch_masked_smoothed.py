@@ -40,12 +40,6 @@ TOL_STEP = 1e-5
 TOL_STEP_PACKED = 1e-3
 RTOL_ELBO = 1e-6
 RTOL_HIST = 1e-4
-# bf16 weights with stats diagnostics, held to JAX's exact diagnostics on
-# the same steps: the port's diagnostics take their data-mean cross terms
-# from the bf16 weights, where the exact residual pass reads the float32
-# network (a fixed bf16 rounding of each weight, 1.7e-4 - 3.9e-4 of the
-# ELBO on these grids).
-RTOL_HIST_BF16_STATS = 1e-3
 RTOL = 1e-5
 RTOL_EM = 1e-3
 
@@ -79,7 +73,7 @@ def _close_state(got, ref, atol, rtol=0.0):
                                    atol=atol, err_msg=name)
 
 
-def _assert_fits_agree(tres, jres, n_check, hist_rtol=RTOL_HIST):
+def _assert_fits_agree(tres, jres, n_check):
     assert tres.n_iter == int(jres.n_iter)
     assert tres.converged == bool(jres.converged)
     assert tres.diverged == bool(jres.diverged)
@@ -87,7 +81,7 @@ def _assert_fits_agree(tres, jres, n_check, hist_rtol=RTOL_HIST):
         t = getattr(tres, name).numpy()[:n_check]
         j = np.asarray(getattr(jres, name))[:n_check]
         assert np.isnan(t).tolist() == np.isnan(j).tolist()
-        assert np.nanmax(np.abs(t - j) / np.abs(j)) < hist_rtol, name
+        assert np.nanmax(np.abs(t - j) / np.abs(j)) < RTOL_HIST, name
 
 
 class TestMaskedSmoothedSteps:
@@ -172,19 +166,13 @@ class TestMaskedSmoothedFits:
         kw = dict(max_iter=10, learning_rate=0.8, tolerance=0.0,
                   update_mode=update_mode, num_blocks=5, diag_mode=diag_mode,
                   mixed_precision=mixed_precision)
-        # bf16 panels with stats diagnostics: the port's diagnostics carry
-        # their panels at ~16 bits (cavi._diag_contract), so its ELBO is
-        # held to JAX's exact diagnostics on the same bf16 steps
-        jkw = (dict(kw, diag_mode="exact")
-               if mixed_precision and diag_mode == "stats" else kw)
         jres = jsm.fit_cavi_smoothed(jnp.asarray(Y), jp, js, fused=False,
-                                     mask=jnp.asarray(mask), **jkw)
+                                     mask=jnp.asarray(mask), **kw)
         tres = tsm.fit_cavi_smoothed(torch.from_numpy(Y),
                                      params_from_numpy(jp),
                                      tsm.smoothed_state_from_numpy(js),
                                      mask=torch.from_numpy(mask), **kw)
-        _assert_fits_agree(tres, jres, 64, hist_rtol=(
-            RTOL_HIST_BF16_STATS if jkw is not kw else RTOL_HIST))
+        _assert_fits_agree(tres, jres, 64)
 
     def test_warm_started_fit_stops_with_jax(self):
         Y, mask, jp = _model_data(seed=2)
