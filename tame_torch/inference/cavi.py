@@ -22,9 +22,12 @@ phase (:func:`_masked_obs_precision`).  ``mixed_precision`` stores the
 dyad weights (and the mask) in bf16 with float32 sums
 (:func:`_eta_contract`); ``diag_mode="stats"`` computes the ELBO/MSE from
 sufficient statistics with no O(n^2 T) residual pass
-(:func:`_residual_stats_from_moments`, :func:`_masked_residual_stats`).
-A masked fit's contractions read the mask as int8 through K5
-(:mod:`tame_torch.ops.masked_contract`) on the card under
+(:func:`_residual_stats_from_moments`, :func:`_masked_residual_stats`),
+whose panels go in as two bf16 halves where a contraction rounds to bf16
+(:func:`_diag_contract`; the JAX module rounds them to bf16 once, so its
+bf16 stats diagnostics differ).  A masked fit's contractions read the
+mask as int8 through K5 (:mod:`tame_torch.ops.masked_contract`) on the
+card under
 ``mixed_precision`` (the production flags: bf16 weights, stats
 diagnostics, a mask), and wherever ``TAME_PACKED_MASK=1`` asks for it
 (:func:`use_packed_mask`).
@@ -184,11 +187,32 @@ def _data_mean_cross_terms(obs: ObsConstants, U: torch.Tensor,
     the terms are then those rows' share of the sums."""
     p, q = R_inv[0, 0], R_inv[0, 1]
     r = U.shape[-1]
-    out = _eta_contract(obs.W0, torch.cat([V, U], -1))
+    out = _diag_contract(lambda Z: _eta_contract(obs.W0, Z), obs.W0,
+                         torch.cat([V, U], -1))
     s1 = torch.sum(U[rows] * out[..., :r])
     s3 = torch.sum(V[rows] * out[..., r:])
     denom = p * p - q * q
     return (p * s1 - q * s3) / denom, (p * s3 - q * s1) / denom
+
+
+def _diag_contract(contract, against, Z: torch.Tensor) -> torch.Tensor:
+    """``contract(Z)`` for the stats diagnostics.  Where the contraction
+    rounds its panel to bf16 (bf16 weights or mask, a mask packed for K5)
+    the panel goes in as two bf16 halves, its bf16 part and the bf16 of
+    the rest, side by side in one contraction of twice the columns, whose
+    sums are added: ~16 bits of the panel.  The diagnostics' expansion
+    subtracts sums ~50 times the residual sum it leaves, so a panel in
+    bf16 alone moved the production flags' ELBO by ~1e-3 at n=2000 and
+    by ~2e-4 from one iteration to the next as entries crossed rounding
+    boundaries: twice the stopping rule's tolerance, so the fits stopped
+    at random.  The steps keep their bf16 panels."""
+    if not (isinstance(against, (PackedMask, PackedRows))
+            or against.dtype == torch.bfloat16):
+        return contract(Z)
+    hi = Z.to(torch.bfloat16).to(Z.dtype)
+    K = Z.shape[-1]
+    C = contract(torch.cat([hi, Z - hi], -1))
+    return C[..., :K] + C[..., K:]
 
 
 def _residual_stats_from_moments(dc: DiagConstants, obs: ObsConstants,
@@ -261,7 +285,7 @@ def _masked_residual_stats(dc: DiagConstants, obs: ObsConstants,
     a1, b1 = a_all[..., None], b_all[..., None]
     Z = torch.cat([torch.ones_like(a1), a1, b1, b1 * b1, U_all, V, a1 * V,
                    b1 * V, b1 * U_all, VV, OVU], -1)       # (n, T, K)
-    C = _mask_contract(mask, Z)                           # (m, T, K)
+    C = _diag_contract(lambda P: _mask_contract(mask, P), mask, Z)
     cnt, Ma, Mb, Mb2 = C[..., 0], C[..., 1], C[..., 2], C[..., 3]
     MU, MV, MaV, MbV, MbU = C[..., 4:4 + 5 * r].split(r, -1)
     MVV, MOVU = C[..., 4 + 5 * r:].split(r * r, -1)

@@ -39,6 +39,15 @@ torch.set_num_threads(1)
 
 RTOL_TERMS = 1e-5
 RTOL_HIST = 1e-4
+# bf16 weights with stats diagnostics, held to JAX's exact diagnostics on
+# the same steps (the port carries the diagnostics' panels in two bf16
+# halves, cavi._diag_contract; JAX's bf16 stats, with the panels in bf16,
+# read 1.2e-3 - 2.6e-3 from its exact ones here and stop elsewhere): the
+# port's data-mean cross terms read the bf16 weights, where the exact
+# residual pass reads the float32 network, a fixed bf16 rounding of each
+# weight; measured on these grids up to 3.9e-4 of the ELBO and 6.8e-4 of
+# the MSE.  The stops and the means keep RTOL_HIST's cases' checks.
+RTOL_HIST_BF16_STATS = {"elbo_history": 5e-4, "mse_history": 1e-3}
 ATOL_STATE = 1e-4
 # A mean one bf16 rounding step apart: ~4e-3 at O(1) (module docstring).
 ATOL_STATE_BF16 = 1e-2
@@ -79,7 +88,8 @@ def _close(got, ref, rtol=RTOL_TERMS, atol=1e-6):
                                atol=atol)
 
 
-def _assert_fits_agree(tres, jres, n_check, state_atol=ATOL_STATE):
+def _assert_fits_agree(tres, jres, n_check, state_atol=ATOL_STATE,
+                       hist_rtol=None):
     assert tres.n_iter == int(jres.n_iter)
     assert tres.converged == bool(jres.converged)
     assert tres.diverged == bool(jres.diverged)
@@ -87,7 +97,8 @@ def _assert_fits_agree(tres, jres, n_check, state_atol=ATOL_STATE):
         t = getattr(tres, name).numpy()[:n_check]
         j = np.asarray(getattr(jres, name))[:n_check]
         assert np.isnan(t).tolist() == np.isnan(j).tolist()
-        assert np.nanmax(np.abs(t - j) / np.abs(j)) < RTOL_HIST, name
+        rtol = RTOL_HIST if hist_rtol is None else hist_rtol[name]
+        assert np.nanmax(np.abs(t - j) / np.abs(j)) < rtol, name
     _close(tres.X_mean, jres.X_mean, rtol=0, atol=state_atol)
 
 
@@ -207,10 +218,16 @@ class TestFitParity:
             kw.update(num_blocks=4, learning_rate=0.8)
         else:
             kw.update(learning_rate=0.6)
-        jres = jcavi.fit_cavi(jY, jp, js, mask=jm, **kw)
+        # bf16 panels with stats diagnostics: the port's diagnostics carry
+        # their panels at ~16 bits (cavi._diag_contract), so its ELBO is
+        # held to JAX's exact diagnostics on the same bf16 steps
+        jkw = (dict(kw, diag_mode="exact")
+               if mixed_precision and diag_mode == "stats" else kw)
+        jres = jcavi.fit_cavi(jY, jp, js, mask=jm, **jkw)
         tres = tcavi.fit_cavi(tY, tp, ts, mask=tm, **kw)
         assert tres.converged
-        _assert_fits_agree(tres, jres, 64)
+        _assert_fits_agree(tres, jres, 64, hist_rtol=(
+            RTOL_HIST_BF16_STATS if jkw is not kw else None))
 
     # Two more bf16 paths, over a fixed short horizon (8 iterations,
     # tolerance 0) with exact diagnostics: on this data their fits to the

@@ -40,6 +40,13 @@ TOL_STEP = 1e-5
 TOL_STEP_PACKED = 1e-3
 RTOL_ELBO = 1e-6
 RTOL_HIST = 1e-4
+# bf16 weights with stats diagnostics, held to JAX's exact diagnostics on
+# the same steps (the port carries the diagnostics' panels in two bf16
+# halves, cavi._diag_contract; JAX's bf16 stats read 2.0e-3 of the ELBO
+# and 2.6e-3 of the MSE from its exact ones here): the port's data-mean
+# cross terms read the bf16 weights, where the exact residual pass reads
+# the float32 network; measured 2.1e-4 of each history.
+RTOL_HIST_BF16_STATS = 4e-4
 RTOL = 1e-5
 RTOL_EM = 1e-3
 
@@ -73,7 +80,7 @@ def _close_state(got, ref, atol, rtol=0.0):
                                    atol=atol, err_msg=name)
 
 
-def _assert_fits_agree(tres, jres, n_check):
+def _assert_fits_agree(tres, jres, n_check, hist_rtol=RTOL_HIST):
     assert tres.n_iter == int(jres.n_iter)
     assert tres.converged == bool(jres.converged)
     assert tres.diverged == bool(jres.diverged)
@@ -81,7 +88,7 @@ def _assert_fits_agree(tres, jres, n_check):
         t = getattr(tres, name).numpy()[:n_check]
         j = np.asarray(getattr(jres, name))[:n_check]
         assert np.isnan(t).tolist() == np.isnan(j).tolist()
-        assert np.nanmax(np.abs(t - j) / np.abs(j)) < RTOL_HIST, name
+        assert np.nanmax(np.abs(t - j) / np.abs(j)) < hist_rtol, name
 
 
 class TestMaskedSmoothedSteps:
@@ -166,13 +173,19 @@ class TestMaskedSmoothedFits:
         kw = dict(max_iter=10, learning_rate=0.8, tolerance=0.0,
                   update_mode=update_mode, num_blocks=5, diag_mode=diag_mode,
                   mixed_precision=mixed_precision)
+        # bf16 panels with stats diagnostics: the port's diagnostics carry
+        # their panels at ~16 bits (cavi._diag_contract), so its ELBO is
+        # held to JAX's exact diagnostics on the same bf16 steps
+        jkw = (dict(kw, diag_mode="exact")
+               if mixed_precision and diag_mode == "stats" else kw)
         jres = jsm.fit_cavi_smoothed(jnp.asarray(Y), jp, js, fused=False,
-                                     mask=jnp.asarray(mask), **kw)
+                                     mask=jnp.asarray(mask), **jkw)
         tres = tsm.fit_cavi_smoothed(torch.from_numpy(Y),
                                      params_from_numpy(jp),
                                      tsm.smoothed_state_from_numpy(js),
                                      mask=torch.from_numpy(mask), **kw)
-        _assert_fits_agree(tres, jres, 64)
+        _assert_fits_agree(tres, jres, 64, hist_rtol=(
+            RTOL_HIST_BF16_STATS if jkw is not kw else RTOL_HIST))
 
     def test_warm_started_fit_stops_with_jax(self):
         Y, mask, jp = _model_data(seed=2)
