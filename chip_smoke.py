@@ -722,7 +722,8 @@ def phase_demo() -> None:
             f"Bad SMF did not blow up: {mse}")
 
 
-def phase_real_size() -> None:
+def phase_real_size() -> int:
+    """Returns the number of iterations run."""
     from tame_torch import TemporalAMEStructuredMFVI
 
     model = north_star_model()
@@ -750,6 +751,7 @@ def phase_real_size() -> None:
     # the noise floor 2 R[0, 0] = 0.2 of the per-dyad normalization.
     require(mse[-1] < 0.9 * mse[0] and mse[-1] < 0.25,
             "MSE did not fall to the noise floor at n=2000")
+    return n_iter
 
 
 def phase_smoothed() -> int:
@@ -1018,37 +1020,95 @@ def phase_contract_kernels(report: dict) -> None:
 
 
 def phase_eta_kernel(report: dict) -> None:
-    """K7 against its twin at the probe's shape and two ragged ones, timed
-    beside the bf16 ``bmm`` with float32 output on the same (contiguous)
-    weights and a bf16 copy of the panel made beforehand."""
+    """K7 against its twin at the engines' shapes and ragged ones: a block
+    phase's 125-row stripes of the n=2000, T=50 weights in float32 and in
+    bf16 against a panel that is a strided view of a state's means (R = r
+    at r = 4 and 6), the whole bf16 matrix against the stats diagnostics'
+    two halves (4r = 16 columns at r = 4, 24 at r = 6) and the probe's
+    R = 4, the quick start's one-row stripes (n=15, T=10, R=2) and n=37.
+    ``ms`` is device time from one CUDA graph replayed
+    (``contract_probe.rotating_graph_ms``), a phase's 16 stripes in
+    rotation so that each arrives cold as in a block sweep; ``call_ms``
+    one wrapper call between two events.  The entry's own numbers are
+    the float32 stripe's (the float32 north star's path); ``shapes``
+    holds each case's."""
     from tame_torch.ops import eta_contract as ec
+    from tame_torch.scripts.contract_probe import rotating_graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     entry = report["eta_contract"]
     entry["max_abs_err"] = 0.0
-    for T, N, R in [(50, 2000, 4), (3, 37, 1), (3, 37, 16)]:
-        W = torch.randn(T, N, N, device="cuda", generator=gen).to(
-            torch.bfloat16)
-        Z = torch.randn(T, N, R, device="cuda", generator=gen)
-        got = ec.eta_contract_kernel(W, Z)
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ec.eta_contract_twin(W, Z))
-        print(f"K7 T={T} N={N} R={R}: max_abs_err {err} rel {rel}")
-        require(rel <= REL_TOL,
-                f"K7 disagrees with its twin at T={T} N={N} R={R}")
+    entry["shapes"] = {}
+    n, T = 2000, 50
+    Wf = torch.randn(T, n, n, device="cuda", generator=gen)
+    Wb = Wf.to(torch.bfloat16)
+
+    def panel(n_, T_, r, cols):
+        """Columns ``cols`` of a (n, T, 2 + 2r) state's means."""
+        X = torch.randn(n_, T_, 2 + 2 * r, device="cuda", generator=gen)
+        return X[..., cols]
+
+    def stripes(W, bs):
+        return [W[:, lo:lo + bs] for lo in range(0, W.shape[1], bs)]
+
+    small = torch.randn(10, 15, 15, device="cuda", generator=gen)
+    ragged = torch.randn(3, 37, 37, device="cuda", generator=gen)
+    cases = [("f32 stripe 125 of n=2000 T=50 R=4", stripes(Wf, 125),
+              panel(n, T, 4, slice(6, 10))),
+             ("bf16 stripe 125 of n=2000 T=50 R=4", stripes(Wb, 125),
+              panel(n, T, 4, slice(6, 10))),
+             ("f32 stripe 125 of n=2000 T=50 R=6 (r=6)", stripes(Wf, 125),
+              panel(n, T, 6, slice(8, 14))),
+             ("bf16 whole n=2000 T=50 R=16 (stats halves)", [Wb],
+              torch.randn(n, T, 16, device="cuda", generator=gen)),
+             ("bf16 whole n=2000 T=50 R=24 (r=6 halves)", [Wb],
+              torch.randn(n, T, 24, device="cuda", generator=gen)),
+             ("bf16 whole n=2000 T=50 R=4 (the probe's)", [Wb],
+              panel(n, T, 4, slice(6, 10))),
+             ("f32 stripe 1 of n=15 T=10 R=2", stripes(small, 1),
+              panel(15, 10, 2, slice(4, 6))),
+             ("bf16 whole n=37 T=3 R=1", [ragged.to(torch.bfloat16)],
+              torch.randn(37, 3, 1, device="cuda", generator=gen)),
+             ("f32 stripe 12 of n=37 T=3 R=16", stripes(ragged, 12),
+              torch.randn(37, 3, 16, device="cuda", generator=gen))]
+    for label, rotation, Z in cases:
+        err = rel = 0.0
+        for W in rotation[:2] + rotation[-1:]:
+            got = ec.eta_contract_kernel(W, Z)
+            torch.cuda.synchronize()
+            e, rl = rel_err(got, ec.eta_contract_twin(W, Z))
+            require(rl <= REL_TOL, f"K7 disagrees with its twin at {label}")
+            err, rel = max(err, e), max(rel, rl)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        ms = cuda_ms(lambda: ec.eta_contract_kernel(W, Z))
+        W = rotation[0]
+        ms = rotating_graph_ms(
+            [lambda W=W: ec.eta_contract_kernel(W, Z) for W in rotation], 10,
+            max(20, 2 * len(rotation)))
+        call_ms = cuda_ms(lambda: ec.eta_contract_kernel(W, Z))
         plain_ms = cuda_ms(lambda: ec.eta_contract_twin(W, Z), reps=5,
                            warmup=1)
-        Zb = Z.to(torch.bfloat16)
-        lib_ms = cuda_ms(lambda: torch.bmm(W, Zb, out_dtype=torch.float32))
-        b = bound(nbytes(W, Z, got), 2 * T * N * N * R, "bf16")
-        print(f"K7 T={T} N={N} R={R}: kernel {ms} ms, twin {plain_ms} ms, "
-              f"bf16 bmm {lib_ms} ms, bound {b['bound_ms']} ms "
-              f"({b['bound_by']})")
-        if "ms" not in entry:  # the probe's shape
-            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
-        del W, Z, Zb, got
+        m_, R = W.shape[1], Z.shape[2]
+        # the stripe's weights, the panel and the sums, each once
+        b = bound(W.element_size() * W.numel()
+                  + 4 * (Z.shape[0] + m_) * W.shape[0] * R,
+                  2 * W.numel() * R, "f32")
+        line = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, rel=rel, **b)
+        if label.startswith("bf16 whole n=2000 T=50 R=4"):
+            Wc, Zb = W.contiguous(), Z.to(torch.bfloat16).transpose(
+                0, 1).contiguous()
+            line["library_ms"] = cuda_ms(
+                lambda: torch.bmm(Wc, Zb, out_dtype=torch.float32))
+            del Wc, Zb
+        print(f"K7 {label}: max_abs_err {err} rel {rel}; kernel {ms} ms "
+              f"(device, {len(rotation)} in rotation), one call {call_ms} "
+              f"ms, twin {plain_ms} ms"
+              + (f", bf16 bmm {line['library_ms']} ms"
+                 if "library_ms" in line else "")
+              + f", bound {b['bound_ms']} ms ({b['bound_by']})", flush=True)
+        entry["shapes"][label] = line
+        if "ms" not in entry:  # the float32 stripe
+            entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms, **b)
+    del Wf, Wb
 
 
 def phase_layout_probe() -> dict:
@@ -3649,13 +3709,17 @@ def main(argv=None) -> int:
         wall(phase.__name__, t0)
 
     _, demo = drive("demo", phase_demo)
-    _, good = drive("n=2000 Good SMF", phase_real_size)
+    good_iter, good = drive("n=2000 Good SMF", phase_real_size)
     n_iter, smoothed = drive("n=2000 smoothed", phase_smoothed)
     _, em = drive("n=2000 EM", phase_em)
     require(demo["fused_fit"] >= 3, "demo drive did not run K3")
     require(good["fused_fit"] == 0, "the n=2000 fit ran K3")
     require(good["spd_solve_inv"] > 0 and good["logdet_spd"] > 0,
             "the n=2000 fit did not run K1 and K2")
+    # W0 @ V and W1 @ U of each block's stripe of the time-major weights
+    require(good["eta_contract"] == 32 * good_iter
+            and smoothed["eta_contract"] == 32 * n_iter,
+            "the n=2000 fits did not launch K7 twice per block phase")
     require(smoothed["fused_smoother"] == 16 * n_iter,
             "the smoothed fit did not launch K4 once per block phase")
     require(em["fused_smoother"] > 0, "the EM E-steps did not run K4")
@@ -3680,6 +3744,10 @@ def main(argv=None) -> int:
         require(counts["masked_contract"] == want,
                 f"the {label} fit launched K5 {counts['masked_contract']} "
                 f"times, not {want}")
+        # two stripes per block phase and the diagnostics' W0 @ [V | U]
+        require(counts["eta_contract"] == 33 * res["n_iter"],
+                f"the {label} fit launched K7 {counts['eta_contract']} "
+                f"times, not 33 per iteration")
         if fit_mask is not None:
             require(res["mse_held"] < 2.0 * res["mse_obs"] + 0.05,
                     f"the {label} fit does not recover the held-out dyads")

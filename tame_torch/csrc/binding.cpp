@@ -251,25 +251,36 @@ int64_t dual_contract_smem_bytes(int64_t n, int64_t width) {
 }
 
 torch::Tensor eta_contract(torch::Tensor W, torch::Tensor Z) {
-  TORCH_CHECK(W.is_cuda() && W.scalar_type() == torch::kBFloat16 &&
-                  W.is_contiguous() && W.dim() == 3 && W.size(1) == W.size(2),
-              "W must be a contiguous (T, N, N) bf16 CUDA tensor");
-  check(Z, "Z");
-  TORCH_CHECK(Z.dim() == 3 && Z.size(0) == W.size(0) && Z.size(1) == W.size(1),
-              "Z must be (T, N, R)");
-  TORCH_CHECK(Z.size(2) >= 1 && Z.size(2) <= 16,
-              "eta_contract is built for 1 <= R <= 16");
+  TORCH_CHECK(W.is_cuda() && W.dim() == 3 &&
+                  (W.scalar_type() == torch::kBFloat16 ||
+                   W.scalar_type() == torch::kFloat32) &&
+                  (W.stride(2) == 1 || W.size(2) <= 1),
+              "W must be a (T, m, n) bf16 or float32 CUDA tensor with its "
+              "partners at unit stride");
+  TORCH_CHECK(Z.is_cuda() && Z.scalar_type() == torch::kFloat32 &&
+                  Z.device() == W.device(),
+              "Z must be a float32 tensor on W's device");
+  TORCH_CHECK(Z.dim() == 3 && Z.size(0) == W.size(2) && Z.size(1) == W.size(0),
+              "Z must be (n, T, R)");
+  TORCH_CHECK(Z.size(2) >= 1 && Z.size(2) <= 92,
+              "eta_contract is built for 1 <= R <= 92");
   TORCH_CHECK(W.size(0) <= std::numeric_limits<int>::max() &&
-                  W.size(1) <= std::numeric_limits<int>::max(),
+                  W.size(1) <= std::numeric_limits<int>::max() &&
+                  W.size(2) <= std::numeric_limits<int>::max(),
               "W too large");
-  const int T = static_cast<int>(W.size(0)), N = static_cast<int>(W.size(1)),
-            R = static_cast<int>(Z.size(2));
+  const int T = static_cast<int>(W.size(0)), m = static_cast<int>(W.size(1)),
+            n = static_cast<int>(W.size(2)), R = static_cast<int>(Z.size(2));
   const c10::cuda::CUDAGuard guard(W.device());
-  auto out = torch::empty({T, N, R}, Z.options());
-  check_launch(tame_eta_contract(W.data_ptr(), Z.data_ptr<float>(),
-                                 out.data_ptr<float>(), T, N, R,
-                                 at::cuda::getCurrentCUDAStream()),
-               "eta_contract");
+  auto out = torch::empty({m, T, R}, Z.options());
+  check_launch(
+      tame_eta_contract(W.data_ptr(), W.scalar_type() == torch::kBFloat16,
+                        W.stride(0), W.stride(1), Z.data_ptr<float>(),
+                        Z.stride(0), Z.stride(1), Z.stride(2),
+                        out.data_ptr<float>(), T, m, n, R,
+                        at::cuda::getCurrentDeviceProperties()
+                            ->multiProcessorCount,
+                        at::cuda::getCurrentCUDAStream()),
+      "eta_contract");
   return out;
 }
 
@@ -298,5 +309,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dual_contract_smem_bytes", &dual_contract_smem_bytes,
         "shared memory of one K6 block at n for a slice of `width` columns");
   m.def("eta_contract", &eta_contract,
-        "K7: per-step W @ bf16(Z) over bf16 (T, N, N) weights, f32 sums");
+        "K7: out[i, t] = sum_j W[t, i, j] Z[j, t] over time-major bf16 or "
+        "float32 weights (Z rounded to bf16 for bf16 weights), f32 sums");
 }

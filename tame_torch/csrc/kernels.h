@@ -105,8 +105,14 @@ cudaError_t tame_dual_contract(const void* W, const float* Z, float* row,
 // columns (bytes; 0 for a width K6 does not take).
 size_t tame_dual_contract_smem_bytes(int n, int width);
 
-// K7: out[t, i, r] = sum_j W[t, i, j] bf16(Z[t, j, r]).  W (T, N, N) bf16
-// (__nv_bfloat16); Z (T, N, R) float32 with 1 <= R <= 16; out (T, N, R)
-// float32, every entry written.
-cudaError_t tame_eta_contract(const void* W, const float* Z, float* out, int T,
-                              int N, int R, cudaStream_t stream);
+// K7: out[i, t, k] = sum_j W[t, i, j] z(Z[j, t, k]) for 0 <= i < m.  W
+// (T, m, n) bf16 (__nv_bfloat16, w_bf16 != 0; z rounds to bf16) or float32
+// (z the identity), partners at unit stride, time steps and rows at strides
+// w_t and w_i (elements); Z (n, T, R) float32 at strides z_j, z_t, z_k with
+// 1 <= R <= 92; out (m, T, R) float32, contiguous, every entry written.
+// sms: the card's SM count, which sets the tiling.
+cudaError_t tame_eta_contract(const void* W, int w_bf16, long long w_t,
+                              long long w_i, const float* Z, long long z_j,
+                              long long z_t, long long z_k, float* out, int T,
+                              int m, int n, int R, int sms,
+                              cudaStream_t stream);

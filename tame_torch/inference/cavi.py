@@ -11,9 +11,13 @@ statistics per time step (see the JAX module's docstring for the algebra):
     eta_obs[i,t] = [ sum_j W0_ij, sum_j W1_ij, (W0 @ V)_i, (W1 @ U)_i ]
 
 with W0 = p Y[...,0] + q Y[...,1] and W1 = q Y[...,0] + p Y[...,1].  The
-``W @ Z`` contractions are plain batched matrix products (``torch.einsum``,
-full float32: TF32 is off, see the package docstring).  The d x d solves and
-the entropy's log-determinants go through :mod:`tame_torch.ops.cholesky`;
+weights are stored time-major once a fit (:class:`TimeMajorWeights`) and
+every ``W @ Z`` contraction of them goes through K7
+(:mod:`tame_torch.ops.eta_contract`; its float32 twin on the CPU): float32
+products of the float32 panel, or of its bf16 rounding for bf16 weights,
+summed in float32 (TF32 is off, see the package docstring).  The d x d
+solves and the entropy's log-determinants go through
+:mod:`tame_torch.ops.cholesky`;
 a whole small fit on the card goes through :mod:`tame_torch.ops.fused_fit`.
 
 Missing-data fits (``mask``) assemble the observation terms from masked
@@ -50,6 +54,7 @@ import torch
 from tame_torch.inference import graphed
 from tame_torch.models.params import AMEParams, _fields_as_tensors
 from tame_torch.ops import dyad as dyad_ops
+from tame_torch.ops import eta_contract
 from tame_torch.ops import fused_fit
 from tame_torch.ops import masked_contract
 from tame_torch.ops.cholesky import (
@@ -65,10 +70,29 @@ _LOG2PI = 1.8378770664093453  # log(2 * pi)
 class ObsConstants(NamedTuple):
     """Data-dependent quantities that are constant across CAVI iterations."""
 
-    W0: torch.Tensor     # (n, n, T)  p*y_ij + q*y_ji (f32 or bf16)
-    W1: torch.Tensor     # (n, n, T)  q*y_ij + p*y_ji
-    eta_a: torch.Tensor  # (n, T)     row-sums of W0
-    eta_b: torch.Tensor  # (n, T)     row-sums of W1
+    W0: "TimeMajorWeights"  # (T, n, n)  p*y_ij + q*y_ji (f32 or bf16)
+    W1: "TimeMajorWeights"  # (T, n, n)  q*y_ij + p*y_ji
+    eta_a: torch.Tensor     # (n, T)     row-sums of W0
+    eta_b: torch.Tensor     # (n, T)     row-sums of W1
+
+
+class TimeMajorWeights:
+    """Dyad weights stored time-major: ``tm[t, i, j]`` is the (i, j, t)
+    weight of the rows ``i`` they hold, (T, m, n).  Indexing by a slice of
+    rows gives that stripe, a view K7 reads in place; every contraction of
+    them goes through K7 (:func:`_eta_contract`)."""
+
+    __slots__ = ("tm",)
+
+    def __init__(self, tm: torch.Tensor):
+        self.tm = tm
+
+    def __getitem__(self, rows: slice) -> "TimeMajorWeights":
+        return TimeMajorWeights(self.tm[:, rows])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tm.dtype
 
 
 class PriorMatrices(NamedTuple):
@@ -110,28 +134,44 @@ def state_from_numpy(s, device=None, dtype=torch.float32) -> CaviState:
 def precompute_obs_constants(Y: torch.Tensor, R_inv: torch.Tensor,
                              w_dtype=None) -> ObsConstants:
     """Dyad weights and their row sums; constant across CAVI iterations.
-    ``w_dtype=torch.bfloat16`` stores the (n, n, T) weights in bf16; the
-    row sums are taken before the rounding and stay float32."""
+    The weights of the (m, n, T, 2) ``Y``'s rows are stored time-major,
+    (T, m, n) (:class:`TimeMajorWeights`), each formed once in (m, n, T)
+    for its float32 row sums and copied over; no (m, n, T) copy is kept.
+    ``w_dtype=torch.bfloat16`` stores them in bf16, the row sums taken
+    before the rounding."""
     p, q = R_inv[0, 0], R_inv[0, 1]
-    W0 = p * Y[..., 0] + q * Y[..., 1]
-    W1 = q * Y[..., 0] + p * Y[..., 1]
-    eta_a, eta_b = W0.sum(1), W1.sum(1)
-    if w_dtype is not None:
-        W0, W1 = W0.to(w_dtype), W1.to(w_dtype)
+    dtype = Y.dtype if w_dtype is None else w_dtype
+
+    def weights(a, b):
+        W = a * Y[..., 0] + b * Y[..., 1]
+        tm = W.permute(2, 0, 1)
+        tm = torch.empty(tm.shape, dtype=dtype, device=Y.device).copy_(tm)
+        return TimeMajorWeights(tm), W.sum(1)
+
+    (W0, eta_a), (W1, eta_b) = weights(p, q), weights(q, p)
     return ObsConstants(W0=W0, W1=W1, eta_a=eta_a, eta_b=eta_b)
 
 
-def _eta_contract(W: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
-    """``einsum("ijt,jtr->itr")``: the engine's dominant contraction,
-    float32 out.
+def _eta_contract(W, Z: torch.Tensor) -> torch.Tensor:
+    """``out[i, t] = sum_j W_ijt Z[j, t]``: the engine's dominant
+    contraction, (m, T, R) float32 out.
 
-    float32 ``W``: a float32 product.  bf16 ``W`` (mixed precision, or a
-    bf16 mask): ``Z`` is rounded to bf16 and the products are summed in
-    float32, as the JAX package's ``preferred_element_type=float32``.  On
-    the card that is one ``bmm`` with ``out_dtype=float32`` on the (t, i,
-    j) view; the CPU has no such overload, so there the bf16 values are
-    widened to float32 (each product of two bf16 values is exact in f32).
+    :class:`TimeMajorWeights` (the dyad weights, or a stripe of their
+    rows): K7 (:func:`tame_torch.ops.eta_contract.eta_contract`; its twin
+    on the CPU), counted as one ``k7_contracts``: float32 products of the
+    float32 ``Z`` for float32 weights; for bf16 weights ``Z`` rounded to
+    bf16, the products summed in float32, as the JAX package's
+    ``preferred_element_type=float32``.
+
+    A dense (m, n, T) mask keeps its layout, its panels being 17-57
+    columns wide: a float32 ``einsum``; in bf16 the same rounding, on the
+    card one ``bmm`` with ``out_dtype=float32`` on the (t, i, j) view, on
+    the CPU (no such overload) the bf16 values widened to float32 (each
+    product of two bf16 values is exact in f32).
     """
+    if isinstance(W, TimeMajorWeights):
+        profiling.count(profiling.K7_CONTRACTS)
+        return eta_contract.eta_contract(W.tm, Z)
     if W.dtype != torch.bfloat16:
         return torch.einsum("ijt,jtr->itr", W, Z)
     Zb = Z.to(torch.bfloat16)
@@ -726,14 +766,16 @@ def _block_obs_terms(X_mean: torch.Tensor, obs: ObsConstants,
         None if contract is None else lambda Z: contract(blk, Z))
 
 
-def rows_obs_terms(X_mean: torch.Tensor, sl: slice, W0: torch.Tensor,
-                   W1: torch.Tensor, eta_a: torch.Tensor, eta_b: torch.Tensor,
-                   R_inv: torch.Tensor, corrected: bool, contract=None):
+def rows_obs_terms(X_mean: torch.Tensor, sl: slice, W0: TimeMajorWeights,
+                   W1: TimeMajorWeights, eta_a: torch.Tensor,
+                   eta_b: torch.Tensor, R_inv: torch.Tensor, corrected: bool,
+                   contract=None):
     """Observation precision (m, T, d, d) and natural parameter (m, T, d)
-    of the m nodes ``X_mean[sl]``, given their rows ``W0``/``W1`` (m, n,
-    T) of the dyad weights and the weights' row sums: :func:`_block_obs_terms`
-    for any slice of rows (a rank's share of a block under a mesh), the
-    masked partner sums through the one-argument ``contract``."""
+    of the m nodes ``X_mean[sl]``, given their rows ``W0``/``W1`` (a
+    stripe of the time-major weights) and the weights' row sums:
+    :func:`_block_obs_terms` for any slice of rows (a rank's share of a
+    block under a mesh), the masked partner sums through the one-argument
+    ``contract``."""
     n, T, d = X_mean.shape
     r = (d - 2) // 2
     p, q = R_inv[0, 0], R_inv[0, 1]
@@ -818,9 +860,10 @@ def node_obs_eta(obs: ObsConstants, i: int, U: torch.Tensor,
                  V: torch.Tensor) -> torch.Tensor:
     """Node ``i``'s (T, d) observation natural parameter from row ``i`` of
     ``obs`` and the partners' means ``U``, ``V`` (n, T, r)."""
+    row = slice(i, i + 1)
     return torch.cat([obs.eta_a[i][:, None], obs.eta_b[i][:, None],
-                      torch.einsum("jt,jtr->tr", obs.W0[i], V),
-                      torch.einsum("jt,jtr->tr", obs.W1[i], U)], -1)
+                      _eta_contract(obs.W0[row], V)[0],
+                      _eta_contract(obs.W1[row], U)[0]], -1)
 
 
 def seq_sweep(X_mean: torch.Tensor, pri: PriorMatrices, params: AMEParams,
@@ -1235,7 +1278,7 @@ def fit_cavi(Y: torch.Tensor, params: AMEParams, init: CaviState, *,
     next power of two >= max(max_iter, 64).  ``elbo_every=k`` evaluates the
     diagnostics every k-th iteration (and at the last).
 
-    ``mixed_precision=True`` stores the (n, n, T) dyad weights (and the
+    ``mixed_precision=True`` stores the time-major dyad weights (and the
     mask) in bf16 and sums their products in float32
     (:func:`_eta_contract`); everything else stays float32.
     ``diag_mode="stats"`` computes the ELBO/MSE from sufficient statistics

@@ -8,11 +8,13 @@ file's docstring).
 
 Variants, each run K times in a chain (z <- out / (1 + rms(out))):
 
-1. the engine's own path today: ``cavi._eta_contract`` on bf16 weights in
-   the (i, j, t) layout (a ``bmm`` on a permuted view, so a copy first);
+1. the (i, j, t) layout's path, the engines' before they stored the
+   weights time-major and a dense bf16 mask's still: ``cavi._eta_contract``
+   on a plain tensor (a ``bmm`` on a permuted view, so a copy first);
 2. ``torch.bmm(..., out_dtype=float32)`` on a contiguous (t, i, j) copy;
 3. the streaming ceiling: a float32 row sum of the (t, i, j) weights;
-4. K7 (``tame_torch.ops.eta_contract``) on the (t, i, j) weights.
+4. K7 (``tame_torch.ops.eta_contract``) on the (t, i, j) weights, the
+   engines' path: the (n, T, R) panel in, (n, T, R) out.
 
 Each prints its median ms per pass over ``--repeats`` timed chains (CUDA
 events on the card) and GB/s over the N^2 T * 2 bytes of the weights, then
@@ -51,6 +53,11 @@ def bmm_f32(W: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.bmm(W, z.to(torch.bfloat16), out_dtype=torch.float32)
 
 
+def twin_tjr(W: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """K7's twin on a (T, N, R) panel, (T, N, R) out."""
+    return ec.eta_contract_twin(W, z.transpose(0, 1)).transpose(0, 1)
+
+
 def row_sum(W: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Every weight read once, summed in float32: the streaming ceiling."""
     return W.sum(2, dtype=torch.float32)[..., None] + z * 1e-6
@@ -80,7 +87,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     Z_tjr = Z_jtr.permute(1, 0, 2).contiguous()
     gb = N * N * T * 2 / 1e9
 
-    product = bmm_f32 if on_card else ec.eta_contract_twin
+    product = bmm_f32 if on_card else twin_tjr
     variants = [
         ("(1) engine _eta_contract, (i, j, t)", cavi._eta_contract, W_ijt,
          Z_jtr),
@@ -90,7 +97,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ("(3) row-sum ceiling, (t, i, j)", row_sum, W_tij, Z_tjr),
         ("(4) K7 eta_contract, (t, i, j)" if on_card
          else "(4) K7 twin on the CPU (no kernel)", ec.eta_contract, W_tij,
-         Z_tjr),
+         Z_jtr),
     ]
     before = ec.eta_contract_kernel.launches
     results = {}
@@ -103,7 +110,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"median of {args.repeats}, {t['clock']}]", flush=True)
 
     ref = product(W_tij, Z_tjr)
-    got = ec.eta_contract(W_tij, Z_tjr)
+    got = ec.eta_contract(W_tij, Z_jtr).transpose(0, 1)
     err = ((ref - got).abs().max() / (ref.abs().max() + 1e-9)).item()
     launches = ec.eta_contract_kernel.launches - before
     print(f"K7 vs (2) rel err: {err}; K7 launches: {launches}", flush=True)

@@ -8,7 +8,9 @@
 * :func:`count` — integer counters, always on (``syncs``: the host's
   syncs with the card; ``graphed_iters``: fit-loop iterations replayed
   as CUDA graphs, :mod:`tame_torch.inference.graphed`; ``k5_contracts``:
-  masked contractions of a packed stripe through K5 or its twin);
+  masked contractions of a packed stripe through K5 or its twin;
+  ``k7_contracts``: contractions of the time-major dyad weights, or a
+  stripe of their rows, through K7 or its twin);
   :func:`counters` reads them beside the kernels' launch counts;
 * :func:`trace` — a ``torch.profiler`` trace of the enclosed block (CPU
   and, with a card, CUDA activity), written as a Chrome trace with the
@@ -50,6 +52,7 @@ SPAN_LIMIT = 1 << 18   # records the buffer holds; later ones are dropped
 SYNCS = "syncs"
 GRAPHED_ITERS = "graphed_iters"
 K5_CONTRACTS = "k5_contracts"
+K7_CONTRACTS = "k7_contracts"
 # The kernels' launch counters (``<function>.launches``), by module.
 KERNELS = (("cholesky", "spd_solve_inv_kernel"),
            ("cholesky", "logdet_spd_kernel"),

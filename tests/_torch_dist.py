@@ -334,7 +334,31 @@ def family_fit(nodes, Y, params, init, family, kw, mask=None):
                 n_iter=out.n_iter, converged=out.converged)
 
 
+def rank_weights(nodes, Y, init, params):
+    """This rank's fit inputs for block phases of 4
+    (``sharded_cavi.rank_inputs``): its time-major weights, their row sums
+    and which of the network's rows they are."""
+    from tame_torch.parallel import sharded_cavi
+
+    mesh = _mesh(nodes)
+    if not mesh.member:
+        return None
+    Y_s, _ = shard_fit_inputs(mesh, Y, cavi.state_from_numpy(init))
+    n, T = Y.shape[0], Y.shape[2]
+    geo = sharded_cavi.Geometry(mesh, n, T)
+    fi = sharded_cavi.rank_inputs(
+        Y_s, params_from_numpy(params).R_inv, None, geo,
+        sharded_cavi.phases(n, "block", 4), mixed_precision=False,
+        diag_mode="exact")
+    rows = geo.rows
+    return {"time_major": isinstance(fi.obs.W0, cavi.TimeMajorWeights),
+            "W0": fi.obs.W0.tm.numpy(), "W1": fi.obs.W1.tm.numpy(),
+            "eta_a": fi.obs.eta_a.numpy(),
+            "rows": (rows.start, rows.stop, rows.step)}
+
+
 CASES = {"fit": fit, "smoothed": smoothed_fit, "samplers": samplers,
          "meshes": meshes, "scaling": scaling, "bytes": iteration_bytes,
          "resume": poisson_resume, "warm": warm, "elbos": elbos,
-         "em_parts": em_parts, "em_fit": em_fit, "family_fit": family_fit}
+         "em_parts": em_parts, "em_fit": em_fit, "family_fit": family_fit,
+         "weights": rank_weights}

@@ -13,6 +13,7 @@ import torch
 
 from tame_torch.config import ModelConfig
 from tame_torch.inference import cavi
+from tame_torch.inference import graphed
 from tame_torch.inference import smoothed
 from tame_torch.models import (TemporalAMEModel, build_params,
                                random_dyad_mask)
@@ -209,13 +210,18 @@ def test_fused_fit_matches_twin(cuda_device, n, T, d, num_blocks, structure,
     # Bad SMF at d = 12 grows its means fastest: over 20 iterations the
     # fit's own float32 rounding reaches the state bound, so it is compared
     # over 10 (test_torch_fused_fit holds the float32 twin to a float64 run
-    # within half the bound there).
+    # within half the bound there).  The twin runs in float64 on the CPU:
+    # the card's float32 unfused loop sums in another order than K3, and two
+    # float32 block fits part by up to twice their own rounding.
     max_iter = 10 if (d, structure) == (12, "block") else 20
     args, kw = _k3_fit(cuda_device, n, T, d, structure, seed=d + n,
                        max_iter=max_iter)
     kw.update(corrected=corrected, num_blocks=num_blocks)
     k = tff.fused_fit_kernel(*args, **kw)
-    t = tff.fused_fit_twin(*args, **kw)
+    t = tff.fused_fit_twin(*[a.cpu().double() if torch.is_tensor(a) else a
+                             for a in args], **kw)
+    k = k._replace(X_mean=k.X_mean.cpu().double(),
+                   X_cov=k.X_cov.cpu().double())
     assert (k.n_iter, k.converged, k.diverged) == (t.n_iter, t.converged,
                                                    t.diverged)
     torch.testing.assert_close(k.elbo_history, t.elbo_history, rtol=RTOL,
@@ -354,8 +360,10 @@ def test_smoothed_fit_runs_through_k4(cuda_device, monkeypatch):
     before = tfs.fused_smoother_kernel.launches
     res = smoothed.fit_cavi_smoothed(Y, p, init, **kw)
     assert tfs.fused_smoother_kernel.launches == before + 40  # one per block
-    # the same fit on the card with every smooth through the twin
+    # the same fit on the card with every smooth through the twin, eagerly:
+    # the twin's tridiagonal solves cannot be captured into a CUDA graph
     monkeypatch.setattr(smoothed, "fused_smoother", tfs.fused_smoother_twin)
+    monkeypatch.setattr(graphed, "engages", lambda *a, **k: False)
     ref = smoothed.fit_cavi_smoothed(Y, p, init, **kw)
     assert tfs.fused_smoother_kernel.launches == before + 40
     torch.testing.assert_close(res.elbo_history, ref.elbo_history,
@@ -380,7 +388,9 @@ def test_high_rank_fit_runs_through_runtime_d_kernels(cuda_device, kind,
                                                       monkeypatch):
     """An r = 6 (d = 14) fit on the card runs through the runtime-d
     K1/K2 (Good SMF; K3 keeps d <= 12) or K4 (smoothed) and matches the
-    same fit on the card with every kernel call through its twin."""
+    same fit on the card with every kernel call through its twin, run
+    eagerly: a twin has no launch counter for a capture to read, and K4's
+    twin's tridiagonal solves cannot be captured into a CUDA graph."""
     model = TemporalAMEModel(n_nodes=12, n_time=5, latent_dim=6, seed=3)
     Y = model.generate_data(device=cuda_device)
     p = model.params.to(cuda_device)
@@ -413,6 +423,7 @@ def test_high_rank_fit_runs_through_runtime_d_kernels(cuda_device, kind,
         assert tfs.fused_smoother_kernel.launches == before + 40
         monkeypatch.setattr(smoothed, "fused_smoother",
                             tfs.fused_smoother_twin)
+    monkeypatch.setattr(graphed, "engages", lambda *a, **k: False)
     ref = fit()
     torch.testing.assert_close(res.elbo_history, ref.elbo_history,
                                rtol=RTOL, atol=0, equal_nan=True)
@@ -424,12 +435,98 @@ def test_eta_contract_matches_twin(cuda_device, T, N, R):
     g = torch.Generator(device=cuda_device).manual_seed(N + R)
     W = torch.randn(T, N, N, device=cuda_device, generator=g).to(
         torch.bfloat16)
-    Z = torch.randn(T, N, R, device=cuda_device, generator=g)
+    Z = torch.randn(N, T, R, device=cuda_device, generator=g)
     before = tec.eta_contract_kernel.launches
     got = tec.eta_contract(W, Z)
     assert tec.eta_contract_kernel.launches == before + 1
     assert _max_rel(got, tec.eta_contract_twin(W, Z)) <= CONTRACT_REL
 
+
+# The engines' K7 launches: (label, dtype, T, rows, n, R); a panel that is
+# a strided view of a (n, T, 2 + 2R) state's means.
+K7_PATH = [("f32 stripe", torch.float32, 50, slice(125, 250), 2000, 4),
+           ("bf16 stripe", torch.bfloat16, 50, slice(125, 250), 2000, 4),
+           ("bf16 whole, stats halves", torch.bfloat16, 50, slice(None),
+            2000, 16),
+           ("bf16 whole, r=6 halves", torch.bfloat16, 50, slice(None), 2000,
+            24),
+           ("bf16 whole, r=7 halves", torch.bfloat16, 50, slice(None), 2000,
+            28),
+           ("f32 whole, r=23 halves", torch.float32, 10, slice(None), 300,
+            92),
+           ("f32 stripe, r=6", torch.float32, 50, slice(0, 125), 2000, 6),
+           ("quick start row", torch.float32, 10, slice(3, 4), 15, 2),
+           ("ragged f32", torch.float32, 3, slice(12, 24), 37, 5),
+           ("ragged bf16", torch.bfloat16, 3, slice(None), 37, 16)]
+
+
+@pytest.mark.parametrize("case", K7_PATH, ids=[c[0] for c in K7_PATH])
+def test_eta_contract_at_the_path_shapes(cuda_device, case):
+    """K7 on a stripe of the time-major weights read in place, against a
+    strided panel, against its twin; a float32 panel is not rounded."""
+    _, dtype, T, rows, n, R = case
+    g = torch.Generator(device=cuda_device).manual_seed(n + R)
+    W = torch.randn(T, n, n, device=cuda_device, generator=g).to(dtype)
+    Z = torch.randn(n, T, 2 + 2 * R, device=cuda_device,
+                    generator=g)[..., 2 + R:]
+    got = tec.eta_contract(W[:, rows], Z)
+    ref = tec.eta_contract_twin(W[:, rows], Z)
+    assert got.shape == ref.shape == (W[:, rows].shape[1], T, R)
+    assert _max_rel(got, ref) <= CONTRACT_REL
+    if dtype == torch.float32:
+        rounded = tec.eta_contract_twin(W[:, rows], Z.to(
+            torch.bfloat16).float())
+        assert _max_rel(got, rounded) > CONTRACT_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eta_contract_stripes_are_the_whole_matrix_rows(cuda_device, dtype):
+    """A row's sums do not depend on the tile K7 picks: the 16 stripes of
+    a block sweep give the whole matrix's bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    W = torch.randn(50, 2000, 2000, device=cuda_device, generator=g).to(
+        dtype)
+    Z = torch.randn(2000, 50, 10, device=cuda_device, generator=g)[..., 6:]
+    whole = tec.eta_contract(W, Z)
+    stripes = torch.cat([tec.eta_contract(W[:, lo:lo + 125], Z)
+                         for lo in range(0, 2000, 125)])
+    assert torch.equal(stripes, whole)
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_graphed_block_step_is_the_eager_one(cuda_device, mixed_precision):
+    """One block step captured into a CUDA graph, with its 2 K7 launches
+    a block, replays the eager step's bits."""
+    n, T, r, blocks = 64, 8, 2, 4
+    model = TemporalAMEModel(n, T, r, device=cuda_device, seed=5)
+    model.generate_data()
+    p = model.params.to(cuda_device)
+    fi = cavi.fit_inputs(model.Y, p.R_inv, None,
+                         mixed_precision=mixed_precision, diag_mode="exact",
+                         packed_mask=False, num_blocks=blocks)
+    pri = cavi.precompute_priors(p)
+    state = cavi.init_state(torch.Generator(device=cuda_device).manual_seed(
+        1), n, T, 2 + 2 * r, "full", 0.1, 0.5, device=cuda_device)
+
+    def step():
+        return cavi.cavi_step_block(state, fi.obs, pri, p, "full", 0.7,
+                                    blocks)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tec.eta_contract_kernel.launches
+    with torch.cuda.graph(graph):
+        out = step()
+    assert tec.eta_contract_kernel.launches - before == 2 * blocks
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.X_mean, eager.X_mean)
+    assert torch.equal(out.X_cov, eager.X_cov)
 
 
 def _max_rel(got, ref):

@@ -138,6 +138,9 @@ def world(problems, tmp_path_factory):
                                              kw=dict(FIT, max_iter=3))))
     cases.append(("bytes", "bytes", dict(nodes=2, time=2, n=16, T=8, r=2,
                                          num_blocks=4)))
+    for nodes in (1, 2):
+        cases.append((f"weights-{nodes}", "weights", dict(
+            nodes=nodes, Y=Y, init=init, params=p)))
     return run_world(8, cases, tmp_path_factory.mktemp("world"))
 
 
@@ -174,6 +177,24 @@ def test_sharded_fit_matches_port_and_tame(world, problems, name):
     # every rank stopped at the same iteration on the same ELBOs
     assert all(m["n_iter"] == got["n_iter"] for m in members)
     assert all(np.array_equal(m["elbo"], got["elbo"]) for m in members)
+
+
+@pytest.mark.parametrize("nodes", [1, 2])
+def test_rank_weights_are_its_time_major_rows(world, problems, nodes):
+    """Each rank of a one- or two-rank mesh stores the time-major weights
+    of the rows it holds, bit for bit the network's rows, which its
+    block phases hand K7 as stripes."""
+    Y, _, p = problems["base"]
+    obs = tcavi.precompute_obs_constants(torch.as_tensor(Y),
+                                         params_from_numpy(p).R_inv)
+    members = _members(world, f"weights-{nodes}")
+    assert len(members) == nodes
+    for got in members:
+        rows = slice(*got["rows"])
+        assert got["time_major"]
+        np.testing.assert_array_equal(got["W0"], obs.W0.tm[:, rows].numpy())
+        np.testing.assert_array_equal(got["W1"], obs.W1.tm[:, rows].numpy())
+        np.testing.assert_array_equal(got["eta_a"], obs.eta_a[rows].numpy())
 
 
 @pytest.mark.parametrize("n,blocks,nodes,shares", [
